@@ -32,6 +32,8 @@
 // written straight into a [B,S,H,D] buffer. The arithmetic runs on the
 // CUDA cores in fp32 (no wgmma, no TMA): at long Sq that leaves the kernel
 // far from the tensor-core bound, which a later revision addresses.
+// Head dims 64, 96, 128 and 256 (recurrentgemma-9b's MQA attention blocks:
+// H 16, Kh 1, window 2048); at D = 256 a lane owns 64 output columns.
 //
 // Thread layout: 256 threads; thread t serves q row t / 4 of the tile and
 // lane c = t % 4 of that row. For scores the lane takes keys c, c+4, ...;
@@ -223,7 +225,8 @@ flash_fwd_kernel(const Params p) {
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  // above 48 KB only as opted-in dynamic shared memory (D=128: 96.5 KB);
+  // above 48 KB only as opted-in dynamic shared memory (D=128: 96.5 KB,
+  // D=256: 192.5 KB of the 227 KB a CTA may have, so one CTA per SM);
   // set once per instantiation (a thread-safe static initialisation)
   constexpr size_t smem = sizeof(float) * (2 * BQ * (D + 1) + BK * D);
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -241,6 +244,7 @@ cudaError_t launch_d(const Params& p, int D, cudaStream_t stream) {
     case 64: return launch<T, 64>(p, stream);
     case 96: return launch<T, 96>(p, stream);
     case 128: return launch<T, 128>(p, stream);
+    case 256: return launch<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

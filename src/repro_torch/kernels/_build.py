@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/repro_torch/`` at the root of
 the checkout, on first use, then loaded with ``ctypes``. The library's file
 name carries a hash of the source and the flags, so a stale build is never
-reused. Building is serialised by a lock: the measurement engine's device
+reused. Loading is serialised by a lock: the measurement engine's device
 thread and the sharing engine's may both be first to launch a kernel.
+``build_all`` starts one ``nvcc`` per source at once, so a fresh checkout
+pays for the slowest build, not the sum.
 """
 from __future__ import annotations
 
@@ -15,8 +17,9 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -45,7 +48,8 @@ def _build(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tmp = out.with_name(
+        f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -55,6 +59,14 @@ def _build(name: str) -> Path:
     out.with_suffix(".log").write_text(res.stdout + res.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` that is not built yet, one nvcc
+    process per source, all started together; returns the libraries."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(_build, names)))
 
 
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

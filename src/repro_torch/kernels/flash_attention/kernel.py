@@ -14,7 +14,7 @@ import torch
 from repro_torch.kernels import _build
 
 #: the kernel's instances: head dims and input types
-HEAD_DIMS = (64, 96, 128)
+HEAD_DIMS = (64, 96, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64

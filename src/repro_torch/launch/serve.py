@@ -5,11 +5,14 @@ engine with batched requests — the end-to-end serving path of the port
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --high qwen3-4b --low stablelm-1.6b --mode fikit --requests 8
 
-``--full`` runs the published widths and depths (random weights);
-without it the services run at ``.reduced()`` scale. ``--device`` picks
-the torch device (default ``cuda``; there is no fallback to the CPU).
-The durable ops-plane verbs, ``--resume`` and the ``load`` verb come in a
-later slice.
+Any ported config can take either role: the dense qwen3-4b and
+stablelm-1.6b, or the recurrentgemma-9b hybrid, served as ``rec`` and
+``attn`` block segments (``--low recurrentgemma-9b`` is pair E of the
+paper's Fig 16). ``--full`` runs the published widths and depths (random
+weights); without it the services run at ``.reduced()`` scale.
+``--device`` picks the torch device (default ``cuda``; there is no
+fallback to the CPU). The durable ops-plane verbs, ``--resume`` and the
+``load`` verb come in a later slice.
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ def serve_pair(high: str, low: str, mode: str = "fikit", requests: int = 8,
     refining SK/SG live during the sharing phase: the LOW service is then
     NOT onboarded offline — it starts cold and becomes gap-fillable from
     its own observed kernels. ``reduced=False`` serves the configs at
-    their published sizes."""
+    their published sizes. The low service runs at twice the high one's
+    batch: ``serve_pair("qwen3-4b", "recurrentgemma-9b", reduced=False)``
+    serves pair E with the hybrid at batch 4, seq 48."""
     from repro_torch.config import get_config
     from repro_torch.serving import InferenceService, ServingSystem
 

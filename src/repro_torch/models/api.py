@@ -1,9 +1,16 @@
 """Uniform model API (``repro.models.api``) for the families this package
-runs so far: the dense decoder.
+runs so far: the dense decoder and the recurrentgemma hybrid.
 
     model = build_params(cfg, seed, device)   # nn.Module, random weights
     logits, aux = forward(model, batch, cfg)
+    logits, caches = prefill(model, batch, cfg)
+    logits, caches = decode_step(model, token, pos, caches, cfg)
+    caches = init_decode_caches(cfg, batch, seq_len, device)
     batch = make_batch(cfg, batch, seq_len, generator, device)
+
+Caches are one entry per layer (the JAX package stacks the dense model's
+over layers), and ``decode_step`` updates KV caches in place; ``pos`` is a
+host int, so no layer reads a position back from the card.
 """
 from __future__ import annotations
 
@@ -12,12 +19,11 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.config import DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rglru, transformer
 
 #: the slice of the port that brings each family still missing
 _LATER = {
-    SSM: "the decode slice (mamba2, with decode_attention)",
-    HYBRID: "the recurrentgemma slice (rglru_scan)",
+    SSM: "the mamba2 slice (chunked SSD scan)",
     MOE: "the MoE/MLA slice",
     ENCDEC: "the encoder-decoder slice",
     VLM: "the VLM slice",
@@ -27,6 +33,8 @@ _LATER = {
 def _mod(cfg: ModelConfig):
     if cfg.family == DENSE:
         return transformer
+    if cfg.family == HYBRID:
+        return rglru
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family} family is not ported yet; it comes "
         f"with {_LATER.get(cfg.family, 'a later slice')}")
@@ -40,6 +48,23 @@ def forward(model, batch, cfg: ModelConfig) -> Tuple[Any, Any]:
     """Returns (logits, aux_loss)."""
     logits = _mod(cfg).forward(model, batch, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def prefill(model, batch, cfg: ModelConfig, extra_capacity: int = 0):
+    """Returns (last-position logits [B, 1, V], caches)."""
+    return _mod(cfg).prefill(model, batch, cfg,
+                             extra_capacity=extra_capacity)
+
+
+def decode_step(model, token, pos: int, caches, cfg: ModelConfig):
+    """token: [B, 1] int32 at host-int position ``pos``. Returns
+    (logits [B, 1, V], caches)."""
+    return _mod(cfg).decode_step(model, token, pos, caches, cfg)
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
+                       device="cuda"):
+    return _mod(cfg).init_decode_caches(cfg, batch, seq_len, device)
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq_len: int,

@@ -49,6 +49,8 @@ class Maker:
         shape = tuple(shape)
         if kind == "zeros":
             w = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        elif kind == "ones":
+            w = torch.ones(shape, dtype=self.dtype, device=self.device)
         elif kind in ("dense", "embed"):
             w = torch.empty(shape, dtype=torch.float32, device=self.device)
             g = self._generator(name)

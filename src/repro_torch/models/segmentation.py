@@ -4,6 +4,8 @@
 A service's inference = [embed] + [layer]*L + [head]. The layer segment is
 ONE callable reused for every layer (the layer's module is bound per
 segment), so all L dispatches share a KernelID, as in the paper's Fig 5.
+The hybrid (recurrentgemma) has one ``rec`` and one ``attn`` segment kind
+instead of ``layer``, in its block pattern's order.
 
 Host work (sampling) runs client-side between segments — the origin of
 inter-kernel device idle gaps. Each segment body runs under
@@ -16,13 +18,13 @@ from __future__ import annotations
 
 import time
 from functools import partial
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import HYBRID, ModelConfig
 from repro_torch.core.client import Segment
-from repro_torch.models import api
+from repro_torch.models import api, rglru
 from repro_torch.models import transformer as tfm
 
 
@@ -49,7 +51,8 @@ class SegmentedService:
     the CPU-side work real serving stacks do between dispatches).
     """
 
-    def __init__(self, cfg: ModelConfig, model: tfm.Transformer, batch: int,
+    def __init__(self, cfg: ModelConfig,
+                 model: Union[tfm.Transformer, rglru.Hybrid], batch: int,
                  seq: int, host_gap: float = 0.0, tail_gap: float = 0.0):
         self.cfg = cfg
         self.model = model
@@ -58,9 +61,14 @@ class SegmentedService:
         self.seq = seq
         self.host_gap = host_gap
         self.tail_gap = tail_gap
-        self._build_decoder_lm()
+        if cfg.family == HYBRID:
+            self._build_hybrid()
+        else:
+            self._build_decoder_lm()
 
-    def _build_decoder_lm(self):
+    def _ends(self):
+        """The embed and head segments, shared by the dense and hybrid
+        layouts."""
         cfg, model = self.cfg, self.model
 
         def embed(tokens):
@@ -71,15 +79,32 @@ class SegmentedService:
             with torch.inference_mode():
                 return _sync(tfm.unembed(model, x, cfg))
 
-        segs = [Segment(f"{cfg.name}/embed", embed)]
-        for lp in model.layers:
+        return (Segment(f"{cfg.name}/embed", embed),
+                Segment(f"{cfg.name}/head", head,
+                        host_work=self._sample_work()))
+
+    def _build_decoder_lm(self):
+        cfg = self.cfg
+        embed, head = self._ends()
+        segs = [embed]
+        for lp in self.model.layers:
             segs.append(Segment(
                 f"{cfg.name}/layer",
                 partial(self._run_layer, lp, cfg),
                 host_work=_sleep_work(self.host_gap)))
-        segs.append(Segment(f"{cfg.name}/head", head,
-                            host_work=self._sample_work()))
-        self.segments = segs
+        self.segments = segs + [head]
+
+    def _build_hybrid(self):
+        cfg = self.cfg
+        embed, head = self._ends()
+        segs = [embed]
+        for lp, kind in zip(self.model.blocks, rglru.block_kinds(cfg)):
+            fn = (rglru.rec_block_apply if kind == "rec"
+                  else rglru.attn_block_apply)
+            segs.append(Segment(
+                f"{cfg.name}/{kind}", partial(self._run_block, fn, lp, cfg),
+                host_work=_sleep_work(self.host_gap)))
+        self.segments = segs + [head]
 
     @staticmethod
     def _run_layer(lp: tfm.DecoderLayer, cfg: ModelConfig, x):
@@ -87,6 +112,11 @@ class SegmentedService:
             return _sync(tfm.layer_apply(lp, x, tfm.positions_for(x), cfg,
                                          window=cfg.sliding_window,
                                          chunk=cfg.attention_chunk))
+
+    @staticmethod
+    def _run_block(fn, lp, cfg: ModelConfig, x):
+        with torch.inference_mode():
+            return _sync(fn(lp, x, cfg))
 
     def _sample_work(self):
         tail = self.tail_gap

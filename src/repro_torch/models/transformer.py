@@ -1,6 +1,7 @@
 """Dense decoder-only transformer LM (GQA / MQA / qk_norm / partial rotary /
 sliding-window / chunked attention): ``repro.models.transformer`` as
-PyTorch modules.
+PyTorch modules, with full-sequence forward, prefill and one-token decode.
+Also provides the attention sublayer the hybrid model uses.
 
 Parameters keep the JAX shapes and names (``wq`` [D, H, Dh], ``wo``
 [H, Dh, D], ...), and the state-dict key of a parameter is its JAX tree
@@ -61,16 +62,48 @@ def _qkv(p: Attention, h, positions, cfg: ModelConfig):
     return q, k, v
 
 
+def _out_proj(p: Attention, out):
+    """einsum("bshk,hkd->bsd", out, wo)."""
+    B, S = out.shape[:2]
+    return out.reshape(B, S, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+
+
 def attn_apply_full(p: Attention, h, positions, cfg: ModelConfig, *,
                     window: Optional[int] = None,
-                    chunk: Optional[int] = None):
-    """Full-sequence causal self-attention sublayer."""
+                    chunk: Optional[int] = None, return_kv: bool = False):
+    """Full-sequence causal self-attention sublayer; with ``return_kv``
+    also its k and v [B, S, Kh, Dh] (for the decode cache)."""
     q, k, v = _qkv(p, h, positions, cfg)
     out = attn.attend(q, k, v, positions, positions, window=window,
                       chunk=chunk)
-    B, S = out.shape[:2]
-    # einsum("bshk,hkd->bsd", out, wo)
-    return out.reshape(B, S, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+    y = _out_proj(p, out)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def attn_apply_decode(p: Attention, h, cache: attn.KVCache, pos: int,
+                      cfg: ModelConfig, *, window=None, chunk=None):
+    """One-token self-attention. h: [B, 1, D]; ``pos`` is the token's
+    position as a host int. Returns (y, cache), the cache updated in
+    place."""
+    positions = torch.arange(pos, pos + 1, dtype=torch.int32,
+                             device=h.device)
+    q, k, v = _qkv(p, h, positions, cfg)
+    cache = attn.cache_write(cache, k, v, pos)
+    out = attn.decode_attend(q, cache, pos, window=window, chunk=chunk)
+    return _out_proj(p, out), cache
+
+
+def attn_prefill(p: Attention, h, positions, cfg: ModelConfig,
+                 capacity: int, *, window=None, chunk=None):
+    """Full-seq attention that also builds the decode cache (ring
+    layout)."""
+    y, (k, v) = attn_apply_full(p, h, positions, cfg, window=window,
+                                chunk=chunk, return_kv=True)
+    zero = attn.init_kv_cache(h.shape[0], capacity, cfg.num_kv_heads,
+                              cfg.resolved_head_dim, h.dtype, h.device)
+    return y, attn.cache_prefill(zero, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +136,26 @@ def layer_apply(lp: DecoderLayer, x, positions, cfg: ModelConfig, *,
                             chunk=chunk)
     h = rms_norm(x, lp.ln2, cfg.norm_eps)
     return x + mlp_apply(lp.mlp, h)
+
+
+def layer_prefill(lp: DecoderLayer, x, positions, cfg: ModelConfig,
+                  capacity: int, *, window=None, chunk=None):
+    h = rms_norm(x, lp.ln1, cfg.norm_eps)
+    y, cache = attn_prefill(lp.attn, h, positions, cfg, capacity,
+                            window=window, chunk=chunk)
+    x = x + y
+    h = rms_norm(x, lp.ln2, cfg.norm_eps)
+    return x + mlp_apply(lp.mlp, h), cache
+
+
+def layer_decode(lp: DecoderLayer, x, cache, pos: int, cfg: ModelConfig, *,
+                 window=None, chunk=None):
+    h = rms_norm(x, lp.ln1, cfg.norm_eps)
+    y, cache = attn_apply_decode(lp.attn, h, cache, pos, cfg, window=window,
+                                 chunk=chunk)
+    x = x + y
+    h = rms_norm(x, lp.ln2, cfg.norm_eps)
+    return x + mlp_apply(lp.mlp, h), cache
 
 
 # ---------------------------------------------------------------------------
@@ -159,3 +212,48 @@ def forward(model: Transformer, tokens, cfg: ModelConfig):
         x = layer_apply(lp, x, positions, cfg, window=cfg.sliding_window,
                         chunk=cfg.attention_chunk)
     return unembed(model, x, cfg)
+
+
+def prefill(model: Transformer, tokens, cfg: ModelConfig,
+            extra_capacity: int = 0):
+    """Returns (last-position logits [B, 1, V], one cache per layer)."""
+    x = embed_tokens(model, tokens, cfg)
+    positions = positions_for(x)
+    capacity = attn.cache_capacity(x.shape[1] + extra_capacity,
+                                   cfg.sliding_window, cfg.attention_chunk)
+    caches = []
+    for lp in model.layers:
+        x, cache = layer_prefill(lp, x, positions, cfg, capacity,
+                                 window=cfg.sliding_window,
+                                 chunk=cfg.attention_chunk)
+        caches.append(cache)
+    return unembed(model, x[:, -1:, :], cfg), caches
+
+
+def decode_step(model: Transformer, token, pos: int, caches,
+                cfg: ModelConfig):
+    """token: [B, 1] int32 at position ``pos`` (a host int); caches: one
+    per layer, updated in place. -> (logits [B, 1, V], caches)."""
+    x = embed_tokens(model, token, cfg)
+    new_caches = []
+    for lp, cache in zip(model.layers, caches):
+        x, cache = layer_decode(lp, x, cache, pos, cfg,
+                                window=cfg.sliding_window,
+                                chunk=cfg.attention_chunk)
+        new_caches.append(cache)
+    return unembed(model, x, cfg), new_caches
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
+                       device="cuda"):
+    """Empty caches, one per layer, sized for decoding at seq_len (the
+    JAX package stacks them over layers)."""
+    if cfg.use_mla:
+        raise NotImplementedError("MLA caches (deepseek-v2) come with the "
+                                  "MoE/MLA slice")
+    capacity = attn.cache_capacity(seq_len, cfg.sliding_window,
+                                   cfg.attention_chunk)
+    return [attn.init_kv_cache(batch, capacity, cfg.num_kv_heads,
+                               cfg.resolved_head_dim, torch_dtype(cfg.dtype),
+                               device)
+            for _ in range(cfg.num_layers)]

@@ -32,8 +32,9 @@ from repro_torch.models.segmentation import SegmentedService
 
 
 class InferenceService:
-    """One hosted model + its priority + its profile state. The weights
-    are random, drawn on ``device`` from ``seed``."""
+    """One hosted model (a dense decoder or the recurrentgemma hybrid)
+    + its priority + its profile state. The weights are random, drawn on
+    ``device`` from ``seed``."""
 
     def __init__(self, cfg: ModelConfig, priority: int, batch: int = 1,
                  seq: int = 32, host_gap: float = 0.0, tail_gap: float = 0.0,

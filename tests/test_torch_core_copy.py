@@ -15,7 +15,7 @@ VERBATIM = [
     "core/queues.py", "core/fikit.py", "core/policy.py",
     "core/placement.py", "core/online.py", "core/executor.py",
     "core/client.py", "config.py", "configs/qwen3_4b.py",
-    "configs/stablelm_1_6b.py",
+    "configs/stablelm_1_6b.py", "configs/recurrentgemma_9b.py",
 ]
 
 

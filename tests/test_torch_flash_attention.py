@@ -37,6 +37,14 @@ SERVING_CASES = [
     (2, 32, 8, 48, 48, 128, {}),
     (4, 32, 32, 48, 48, 64, {}),
 ]
+# head dim 256: recurrentgemma-9b's MQA attention blocks (H 16, Kh 1,
+# window 2048) at serving (batch 4, seq 48) and a shorter window that
+# cuts the causal band; the 2100-token prompt is for the card only
+D256_CASES = [
+    (4, 16, 1, 48, 48, 256, dict(window=2048)),
+    (1, 16, 1, 200, 200, 256, dict(window=64)),
+]
+D256_PROMPT = (2, 16, 1, 2100, 2100, 256, dict(window=2048))
 # Sq and Sk not a multiple of the 64-row tile, with a window
 RAGGED_CASE = (2, 4, 2, 48, 48, 64, dict(window=16))
 # window 0 masks every key of every row: the oracle returns mean(v)
@@ -105,6 +113,17 @@ def test_ref_matches_jax_ref(case, dtype, jax_flash):
     assert np.max(np.abs(_f32(out) - _f32(want))) < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", D256_CASES, ids=_case_id)
+def test_head_dim_256_matches_jax_ref(case, dtype, jax_flash):
+    _, jref = jax_flash
+    arrays = _numpy_inputs(case)
+    out = ops.flash_attention(*_torch(arrays, dtype), **case[6])
+    want = jref(*_jax(arrays, dtype), **case[6])
+    assert out.dtype == dtype and tuple(out.shape) == want.shape
+    assert np.max(np.abs(_f32(out) - _f32(want))) < TOL[dtype]
+
+
 @pytest.mark.parametrize("case", FLASH_CASES[:2], ids=_case_id)
 def test_ref_matches_pallas_interpret(case, jax_flash):
     """Against the Pallas kernel body itself, run by the interpreter as
@@ -164,8 +183,8 @@ def test_kernel_refuses_cpu_tensors():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize(
-    "case", FLASH_CASES + SERVING_CASES + [RAGGED_CASE, MASKED_CASE],
-    ids=_case_id)
+    "case", FLASH_CASES + SERVING_CASES + D256_CASES
+    + [D256_PROMPT, RAGGED_CASE, MASKED_CASE], ids=_case_id)
 def test_kernel_matches_ref_on_card(case, dtype, cuda):
     q, k, v = _torch(_numpy_inputs(case), dtype, cuda)
     before = ops.flash_attention.launches
@@ -196,6 +215,8 @@ def test_kernel_takes_transposed_projections(cuda):
 
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_head_dim(cuda):
+    """Head dims the kernel has no instance of raise (64, 96, 128 and
+    256 have one)."""
     q = torch.zeros(1, 2, 16, 80, device=cuda)
     with pytest.raises(ValueError, match="head dim 80"):
         ops.flash_attention(q, q, q)

@@ -1,4 +1,6 @@
-"""The port's dense decoder against the JAX package's, on the CPU.
+"""The port's dense decoder and recurrentgemma hybrid against the JAX
+package's, on the CPU: full-sequence logits, and prefill followed by
+one-token decode steps (logits at every step and the final caches).
 
 Inputs and weights come from numpy / the JAX package's own init and are
 handed to both frameworks (weights through ``repro_torch.bridge``).
@@ -9,7 +11,9 @@ atol 5e-4: the random-init residual stream of reduced stablelm grows to
 ~60, and against a float64 forward of the same weights the JAX logits
 are off by 3.7e-4 and the port's by 1.1e-4 (max |logit| 3.6); qwen3's
 qk-norm keeps both within 3e-6. A convention slip (norm scale, rope
-pairing, GQA head order) moves logits by 1e-2 or more.
+pairing, GQA head order) moves logits by 1e-2 or more. Decode logits and
+the caches' k/v after prefill + 8 steps are held to the same 5e-4 (the
+caches carry the same residual stream), slot positions exactly.
 """
 import numpy as np
 import pytest
@@ -22,9 +26,10 @@ import jax.numpy as jnp  # noqa: E402
 from repro import config as jconfig  # noqa: E402
 from repro.models import api as japi  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
+from repro.models import mamba2 as jmamba2  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.config import get_config  # noqa: E402
-from repro_torch.models import api, layers  # noqa: E402
+from repro_torch.models import api, layers, mamba2  # noqa: E402
 from repro_torch.models.segmentation import SegmentedService  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -101,6 +106,29 @@ def test_maker_draws_the_jax_distributions():
     e = make("embed", (512, 256), "embed")
     assert abs(float(e.std()) - 0.02) < 0.001
     assert torch.count_nonzero(make("ln1", (256,), "zeros")) == 0
+    ones = layers.Maker(7, torch.bfloat16, "cpu")("b0_lam", (64,), "ones")
+    assert ones.dtype == torch.bfloat16 and torch.equal(
+        ones, torch.ones(64, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        make("x", (2,), "uniform")
+
+
+@pytest.mark.parametrize("with_buf", [False, True], ids=["fresh", "buf"])
+def test_causal_conv_matches_jax(with_buf):
+    """The rec blocks' depthwise causal conv and its carried history."""
+    r = _rng(6)
+    x = r.standard_normal((2, 7, 16), dtype=np.float32)
+    w = r.standard_normal((4, 16), dtype=np.float32)
+    buf = r.standard_normal((2, 3, 16), dtype=np.float32) if with_buf \
+        else None
+    y, new_buf = mamba2._causal_conv(
+        torch.from_numpy(x), torch.from_numpy(w),
+        None if buf is None else torch.from_numpy(buf))
+    want_y, want_buf = jmamba2._causal_conv(
+        jnp.asarray(x), jnp.asarray(w),
+        None if buf is None else jnp.asarray(buf))
+    _close(y, want_y, atol=1e-6, rtol=1e-6)
+    _close(new_buf, want_buf, atol=0, rtol=0)
 
 
 # ------------------------------------------------------------ whole model
@@ -110,19 +138,22 @@ MODEL_CASES = {
     "qwen3-4b-gqa": lambda: jconfig.get_config("qwen3-4b").reduced()
     .replace(num_kv_heads=2),
     "stablelm-1.6b": lambda: jconfig.get_config("stablelm-1.6b").reduced(),
+    # 2 blocks (rec, attn), lru width 256, window 128, MQA head dim 64
+    "recurrentgemma-9b": lambda: jconfig.get_config("recurrentgemma-9b")
+    .reduced(),
 }
 
 
-def _port_cfg(jcfg):
+def _port_cfg(jcfg, **kw):
     """The port's config of the same architecture, with the same fields."""
     base = get_config(jcfg.name.replace("-reduced", ""))
     return base.reduced().replace(num_kv_heads=jcfg.num_kv_heads,
-                                  dtype=jcfg.dtype)
+                                  dtype=jcfg.dtype, **kw)
 
 
-def _bridged(jcfg, seed=0):
+def _bridged(jcfg, seed=0, **kw):
     jparams = japi.build_params(jcfg, jax.random.key(seed))
-    cfg = _port_cfg(jcfg)
+    cfg = _port_cfg(jcfg, **kw)
     model = api.build_params(cfg, seed=seed, device="cpu")
     state = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
     model.load_state_dict(state)
@@ -139,6 +170,73 @@ def test_logits_match_jax_forward(name):
     assert tuple(logits.shape) == want.shape
     assert float(aux) == 0.0
     _close(logits, want, **LOGIT_TOL)
+
+
+# name: (JAX config, config fields set on both sides, prompt length)
+DECODE_CASES = {
+    "qwen3-4b": (MODEL_CASES["qwen3-4b-gqa"], {}, 24),
+    "stablelm-1.6b": (MODEL_CASES["stablelm-1.6b"], {}, 24),
+    # prompts of 40 over a 32-slot ring: prefill keeps the last 32 tokens
+    # (the ring branch with its reorder) and decode wraps further
+    "qwen3-4b-window32": (MODEL_CASES["qwen3-4b-gqa"],
+                          dict(sliding_window=32), 40),
+    "qwen3-4b-chunk32": (MODEL_CASES["qwen3-4b-gqa"],
+                         dict(attention_chunk=32), 40),
+    # past the reduced hybrid's 128-token window
+    "recurrentgemma-9b": (MODEL_CASES["recurrentgemma-9b"], {}, 130),
+}
+DECODE_STEPS = 8
+
+
+def _flat_caches(cfg, caches, jcaches):
+    """(port tensors, JAX arrays) of two caches, field by field: the JAX
+    dense caches are stacked over layers, the port's are a list."""
+    if cfg.family == "dense":
+        return [torch.stack(f) for f in zip(*caches)], list(jcaches)
+    return ([t for c in caches for t in c], [a for c in jcaches for a in c])
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+def test_prefill_then_decode_matches_jax(name):
+    make_jcfg, kw, prompt = DECODE_CASES[name]
+    jcfg = make_jcfg().replace(**kw)
+    jparams, cfg, model, _ = _bridged(jcfg, **kw)
+    r = _rng(7)
+    tokens = r.integers(0, cfg.vocab_size, (2, prompt), dtype=np.int32)
+    steps = r.integers(0, cfg.vocab_size, (DECODE_STEPS, 2, 1),
+                       dtype=np.int32)
+    want, jcaches = japi.prefill(jparams, jnp.asarray(tokens), jcfg,
+                                 extra_capacity=DECODE_STEPS)
+    logits, caches = api.prefill(model, torch.from_numpy(tokens), cfg,
+                                 extra_capacity=DECODE_STEPS)
+    assert tuple(logits.shape) == want.shape == (2, 1, cfg.vocab_size)
+    _close(logits, want, **LOGIT_TOL)
+    for i in range(DECODE_STEPS):
+        pos = prompt + i
+        want, jcaches = japi.decode_step(jparams, jnp.asarray(steps[i]), pos,
+                                         jcaches, jcfg)
+        logits, caches = api.decode_step(model, torch.from_numpy(steps[i]),
+                                         pos, caches, cfg)
+        _close(logits, want, **LOGIT_TOL)
+    got, ref = _flat_caches(cfg, caches, jcaches)
+    assert [tuple(t.shape) for t in got] == [a.shape for a in ref]
+    for t, a in zip(got, ref):
+        _close(t, a, **LOGIT_TOL)
+
+
+def test_init_decode_caches_match_jax():
+    """Empty caches: same shapes, dtypes and empty-slot marks (-1) as the
+    JAX package's, for a ragged seq_len and for the hybrid's window."""
+    for jcfg, seq_len in ((MODEL_CASES["qwen3-4b-gqa"](), 40),
+                          (MODEL_CASES["recurrentgemma-9b"](), 300)):
+        cfg = _port_cfg(jcfg)
+        got, ref = _flat_caches(
+            cfg, api.init_decode_caches(cfg, 2, seq_len, device="cpu"),
+            japi.init_decode_caches(jcfg, 2, seq_len))
+        assert [tuple(t.shape) for t in got] == [a.shape for a in ref]
+        for t, a in zip(got, ref):
+            assert str(t.dtype).split(".")[1] == str(a.dtype)
+            _close(t, a, atol=0, rtol=0)
 
 
 def test_bridge_keeps_dtype_and_shape():
@@ -173,7 +271,7 @@ def test_segment_chain_equals_forward():
 
 def test_other_families_name_their_slice():
     cfg = get_config("qwen3-4b").reduced().replace(family="ssm")
-    with pytest.raises(NotImplementedError, match="decode slice"):
+    with pytest.raises(NotImplementedError, match="mamba2 slice"):
         api.build_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         api.make_batch(cfg.replace(family="moe"), 1, 8, device="cpu")

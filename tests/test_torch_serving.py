@@ -1,7 +1,8 @@
 """End-to-end serving tests of the port on the CPU at reduced scale:
 measurement -> sharing lifecycle (``tests/test_serving_e2e.py``'s cases
-with the port's dense pair qwen3-4b + stablelm-1.6b), KernelID agreement
-with the JAX package, and the rule that the port imports no JAX."""
+with the port's dense pair qwen3-4b + stablelm-1.6b), pair E (qwen3-4b +
+the recurrentgemma-9b hybrid), KernelID agreement with the JAX package,
+and the rule that the port imports no JAX."""
 import statistics as st
 import subprocess
 import sys
@@ -121,33 +122,70 @@ def test_cuda_is_the_default_device():
         InferenceService(get_config("qwen3-4b").reduced(), priority=0)
 
 
-def test_segment_kernel_ids_match_jax():
-    """A torch segment and a JAX segment of the same avals encode to the
-    same KernelID (int32 tokens, float32 activations), so profiles keyed
-    by KernelID mean the same thing in both packages."""
+def _kernel_id_chain(svc, state):
+    ids = []
+    for seg in svc.segments:
+        ids.append(seg.kernel_id(state).encode())
+        state = seg.fn(state)
+    return ids, state
+
+
+def _check_kernel_ids_match_jax(arch, unique):
     jax = pytest.importorskip("jax")
     from repro import config as jconfig
     from repro.models import api as japi
     from repro.models import segmentation as jseg
-    jcfg = jconfig.get_config("qwen3-4b").reduced()
+    jcfg = jconfig.get_config(arch).reduced()
     jsvc = jseg.SegmentedService(
         jcfg, japi.build_params(jcfg, jax.random.key(0)), batch=1, seq=24)
-    cfg = get_config("qwen3-4b").reduced()
+    cfg = get_config(arch).reduced()
     svc = SegmentedService(cfg, api.build_params(cfg, device="cpu"),
                            batch=1, seq=24)
-
-    def chain(s, state):
-        ids = []
-        for seg in s.segments:
-            ids.append(seg.kernel_id(state).encode())
-            state = seg.fn(state)
-        return ids, state
-
-    ids, toks = chain(svc, svc.make_input())
-    jids, _ = chain(jsvc, jsvc.make_input())
+    ids, toks = _kernel_id_chain(svc, svc.make_input())
+    jids, _ = _kernel_id_chain(jsvc, jsvc.make_input())
     assert ids == jids
-    assert len(set(ids)) == 3
+    assert [seg.name for seg in svc.segments] == \
+        [seg.name for seg in jsvc.segments]
+    assert len(set(ids)) == unique
     assert isinstance(svc.segments[-1].host_work(toks), np.ndarray)
+
+
+def test_segment_kernel_ids_match_jax():
+    """A torch segment and a JAX segment of the same avals encode to the
+    same KernelID (int32 tokens, float32 activations), so profiles keyed
+    by KernelID mean the same thing in both packages."""
+    _check_kernel_ids_match_jax("qwen3-4b", unique=3)
+
+
+def test_hybrid_segment_kernel_ids_match_jax():
+    """The hybrid's segments (embed, rec, attn, head) get the JAX
+    package's KernelIDs too."""
+    _check_kernel_ids_match_jax("recurrentgemma-9b", unique=4)
+
+
+def test_hybrid_segment_chain_equals_forward():
+    """embed -> rec/attn blocks -> head through the service's segments
+    gives the hybrid's logits."""
+    cfg = get_config("recurrentgemma-9b").reduced()
+    model = api.build_params(cfg, seed=3, device="cpu")
+    svc = SegmentedService(cfg, model, batch=2, seq=24)
+    names = [seg.name.split("/")[1] for seg in svc.segments]
+    assert names == ["embed", "rec", "attn", "head"]
+    tokens = svc.make_input()
+    state = tokens
+    for seg in svc.segments:
+        state = seg.fn(state)
+    logits, _ = api.forward(model, tokens, cfg)
+    torch.testing.assert_close(state, logits, rtol=0, atol=0)
+
+
+def test_serve_pair_e_on_cpu():
+    """Pair E of the paper's Fig 16 (qwen3-4b high, recurrentgemma-9b
+    low) serves under FIKIT at reduced scale."""
+    out = serve_pair("qwen3-4b", "recurrentgemma-9b", mode="fikit",
+                     requests=2, measure_runs=2, device="cpu", verbose=False)
+    assert out["high_jct_ms"] > 0 and out["low_jct_ms"] > 0
+    assert out["measure_low_ms"] > 0
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -156,7 +194,11 @@ def test_port_imports_no_jax_and_no_reference_package():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.serving.engine, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.bridge, "
+        "repro_torch.models.rglru, repro_torch.models.mamba2, "
+        "repro_torch.kernels.rglru_scan.ops, "
+        "repro_torch.kernels.decode_attention.ops, "
+        "repro_torch.kernels.flash_attention.ops\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

@@ -8,11 +8,17 @@ Phases, each of which exits non-zero on failure:
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: nvcc builds every kernel of the port's paths from the sources
    in this checkout (``src/repro_torch/csrc``) for sm_90a, one nvcc per
-   source, all started together;
+   source, all started together; every bf16 instance of the flash kernel
+   must show HGMMA (wgmma) in ``cuobjdump -sass`` and no spills in
+   ptxas's report;
 3. kernels: flash_attention, decode_attention and rglru_scan, each
    against its plain PyTorch version on the card, at the test shapes, the
-   shapes the paths give them, ragged, all-masked and long cases, in fp32
-   (tolerance 2e-5; rglru_scan 1e-4) and bf16 (2e-2); prints the error and
+   shapes the paths give them (flash also on the paths' own layout:
+   transposed views of [B, S, H, D]), ragged, tiling-edge, all-masked and
+   long cases, in fp32 (tolerance 2e-5; rglru_scan 1e-4) and bf16 (2e-2;
+   bf16 flash also within 2 ** -6 of the plain output's size, per element:
+   |kernel - plain| / (|plain| + rms of the plain row over D));
+   prints the error and
    the median times of the kernel, the plain version and one PyTorch
    library call of the same function where there is one (a yardstick
    only), beside the least time the card could take (bytes over
@@ -27,7 +33,9 @@ Phases, each of which exits non-zero on failure:
    (B2, prompt 1024) and recurrentgemma-9b (B2, prompt 2100, past its
    2048 window, so the cache is a wrapped ring); logits at every step
    against the same run on the plain versions, the decode kernel's
-   launches = steps x attention layers, and the time per decode step;
+   launches = steps x attention layers, flash's = attention layers, the
+   time of ``api.prefill`` (host clock around a synchronised call, median
+   of 3) and the time per decode step;
 6. serving: ``serve_pair`` hosts qwen3-4b (Q0) with stablelm-1.6b, then
    with recurrentgemma-9b (pair E), at full size under FIKIT and under
    SHARING; every kernel's launch counter is set to 0 before each run
@@ -49,6 +57,8 @@ import contextlib
 import gc
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -60,10 +70,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK = {"float32": 67e12, "bfloat16": 989e12}   # fp32 CUDA cores; bf16 TC
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 flash, per element, over the plain output's size: two bf16 ulps
+# (a long row's outputs are about its length ** -0.5, far under 2e-2)
+SCALED_TOL = 2 ** -6
 RGLRU_TOL = 1e-4
 HI, LO, HYB = "qwen3-4b", "stablelm-1.6b", "recurrentgemma-9b"
 REQUESTS, MEASURE_RUNS = 4, 3
 GEN_STEPS = 16
+# the generate phase's (model, batch, prompt): past the hybrid's 2048 window
+GENERATE = ((HYB, 2, 2100), (HI, 2, 1024))
 KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
 
 # flash_attention: B, H, Kh, Sq, Sk, D, kwargs
@@ -78,9 +93,22 @@ HI_SHAPE = (2, 32, 8, 48, 48, 128, {})      # qwen3-4b at batch 2, seq 48
 LO_SHAPE = (4, 32, 32, 48, 48, 64, {})      # stablelm-1.6b at batch 4
 HYB_SHAPE = (4, 16, 1, 48, 48, 256, dict(window=2048))   # hybrid serving
 HYB_PROMPT = (2, 16, 1, 2100, 2100, 256, dict(window=2048))
+HI_PROMPT = (2, 32, 8, 1024, 1024, 128, {})  # qwen3-4b prefill, prompt 1024
 RAGGED = (2, 4, 2, 48, 48, 64, dict(window=16))
 ALL_MASKED = (1, 4, 2, 40, 72, 64, dict(window=0))
 LONG = (1, 32, 8, 4096, 4096, 128, {})
+# the bf16 kernel's tiling edges (tests/test_torch_flash_attention.py):
+# Sq, Sk off the tile grid with Sk != Sq; window and chunk borders inside
+# a kv tile; D 96 past 128 rows; two warpgroups a CTA, one past Sq
+EDGE_CASES = [
+    (1, 4, 2, 100, 150, 64, dict(causal=False)),
+    (2, 8, 2, 130, 77, 128, dict(causal=False)),
+    (1, 4, 4, 256, 256, 64, dict(window=40)),
+    (1, 4, 2, 320, 320, 128, dict(chunk=96)),
+    (1, 4, 2, 200, 200, 96, {}),
+    (1, 32, 8, 640, 640, 128, {}),
+    (1, 32, 8, 530, 530, 64, dict(window=100)),
+]
 
 # decode_attention: B, H, Kh, C, D, kwargs, pos (kpos 0..C-1, or a
 # wrapped ring when pos >= C; RING_CASE has empty slots)
@@ -182,13 +210,26 @@ def finish_case(torch, label, out, want, tol, kernel_fn, plain_fn, lib_fn,
     rec = dict(extra, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    log(f"  {label}: err {err:.3g} | kernel {ms:.4f} ms, plain "
+    if "scaled_err" in extra:
+        err = f"{err:.3g} (scaled {extra['scaled_err']:.3g})"
+    else:
+        err = f"{err:.3g}"
+    log(f"  {label}: err {err} | kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.5f} ms "
         f"({bound_by})")
     return rec
 
 
 # ------------------------------------------------------------ flash cases
+def scaled_err(torch, out, want) -> float:
+    """max |out - want| / (|want| + rms of want's row over D): the error
+    against the size of the output, which an absolute bound misses where
+    rows are long and their outputs small."""
+    out, want = out.float(), want.float()
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    return float(((out - want).abs() / (want.abs() + rms)).max())
+
+
 def allowed_pairs(torch, Sq, Sk, causal=True, window=None, chunk=None):
     """(q, k) pairs the mask keeps: the work this run's data needs."""
     qpos = torch.arange(Sq)[:, None]
@@ -203,17 +244,35 @@ def allowed_pairs(torch, Sq, Sk, causal=True, window=None, chunk=None):
     return mask, int(mask.sum())
 
 
-def check_flash_case(torch, K, case, dtype, seed):
-    """flash_attention vs its plain version on the card."""
+def check_flash_case(torch, K, case, dtype, seed, path_layout=False):
+    """flash_attention vs its plain version on the card; ``path_layout``:
+    q, k, v as ``attend`` hands them over, transposed views of
+    [B, S, heads, D] projections."""
     import torch.nn.functional as F
     ops, ref = K["flash_attention"]
     B, H, Kh, Sq, Sk, D, kw = case
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(B, H, Sq, D, generator=g, device="cuda").to(dtype)
-    k = torch.randn(B, Kh, Sk, D, generator=g, device="cuda").to(dtype)
-    v = torch.randn(B, Kh, Sk, D, generator=g, device="cuda").to(dtype)
+    if path_layout:
+        q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda")
+                   .to(dtype).transpose(1, 2)
+                   for S, n in ((Sq, H), (Sk, Kh), (Sk, Kh)))
+    else:
+        q = torch.randn(B, H, Sq, D, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, Kh, Sk, D, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, Kh, Sk, D, generator=g, device="cuda").to(dtype)
     out = ops.flash_attention(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
+    name = dtype_name(dtype)
+    layout = "BSHD views" if path_layout else "BHSD"
+    label = f"flash_attention {case[:6]} {kw} {name} {layout}"
+    extra = {"shape": list(case[:6]), "kw": kw, "dtype": name,
+             "layout": layout}
+    if dtype == torch.bfloat16:
+        extra["scaled_err"] = scaled_err(torch, out, want)
+        if not extra["scaled_err"] < SCALED_TOL:
+            raise AssertionError(f"{label}: max|kernel - plain| / (|plain| "
+                                 f"+ row rms) = {extra['scaled_err']} (tol "
+                                 f"{SCALED_TOL})")
     # yardstick only: PyTorch's fused attention on the same inputs (kv
     # heads expanded and the mask built outside the timed call)
     G = H // Kh
@@ -226,16 +285,14 @@ def check_flash_case(torch, K, case, dtype, seed):
     else:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, ke, ve, is_causal=True)
-    name = dtype_name(dtype)
     esz = 2 if dtype == torch.bfloat16 else 4
     bound = least_ms(esz * D * (2 * B * H * Sq + 2 * B * Kh * Sk),
                      4 * D * B * H * pairs, name)
     return finish_case(
-        torch, f"flash_attention {case[:6]} {kw} {name}", out, want,
-        TOL[name], lambda: ops.flash_attention(q, k, v, **kw),
+        torch, label, out, want, TOL[name],
+        lambda: ops.flash_attention(q, k, v, **kw),
         lambda: ref.flash_attention_ref(q, k, v, **kw), lib,
-        5 if Sq >= 2048 else 20, bound,
-        {"shape": list(case[:6]), "kw": kw, "dtype": name})
+        5 if Sq >= 2048 else 20, bound, extra)
 
 
 # ----------------------------------------------------------- decode cases
@@ -433,6 +490,21 @@ def model_check(torch, K, name, batch, seq, keep=False):
     return model if keep else None
 
 
+def prefill_times(torch, model, tokens, cfg, runs: int = 3) -> list:
+    """Host-clock ms of ``runs`` synchronised ``api.prefill`` calls (a
+    cache GEN_STEPS beyond the prompt), after one warm-up call."""
+    from repro_torch.models import api
+    times = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            api.prefill(model, tokens, cfg, extra_capacity=GEN_STEPS)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times[1:]
+
+
 def generate_check(torch, K, name, model, batch, prompt, hold_logits):
     """Prefill ``prompt`` tokens, then GEN_STEPS decode steps (tokens
     drawn up front, so every run sees the same ones). Three runs: the
@@ -467,6 +539,8 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits):
                 outs.append(logits)
         return outs, times, caches
 
+    prefill = prefill_times(torch, model, tokens, cfg)
+    free(torch)
     reset_launches(K)
     outs, times, caches = run()
     launches = read_launches(K)
@@ -480,10 +554,11 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits):
             "flash_attention": attn_layers}
     if cfg.family == "hybrid":
         need["rglru_scan"] = cfg.num_layers - attn_layers
-    if launches["decode_attention"] != need["decode_attention"] or any(
+    exact = ("decode_attention", "flash_attention")
+    if any(launches[k] != need[k] for k in exact) or any(
             launches[k] < v for k, v in need.items()):
         raise AssertionError(f"{name} generate: launches {launches}, "
-                             f"need {need} (decode exactly)")
+                             f"need {need} (decode and flash exactly)")
     rel = []
     for i, (o, r) in enumerate(zip(outs, ref_outs)):
         if not bool(torch.isfinite(o).all()):
@@ -497,6 +572,8 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits):
     C = next(c for c in caches if hasattr(c, "pos")).capacity
     rec = {"model": name, "batch": batch, "prompt": prompt,
            "steps": GEN_STEPS, "cache_slots": C, "launches": launches,
+           "prefill_ms_median": statistics.median(prefill),
+           "prefill_ms": prefill,
            "decode_step_ms_median": statistics.median(times),
            "decode_step_ms": times, "logits_held": hold_logits,
            "logits_rel_err_per_step": rel, "argmax_agree_steps": agree,
@@ -535,9 +612,9 @@ def serve_run(torch, K, low, mode):
                wall_s=wall)
     log(f"  {low} {mode}: " + json.dumps(rec))
     short = {k: v for k, v in need.items() if launches[k] < v}
-    if short:
+    if short or launches["flash_attention"] != need["flash_attention"]:
         raise AssertionError(f"{low} {mode}: launches {launches}, the run "
-                             f"needs at least {need}")
+                             f"needs at least {need} (flash exactly)")
     if not (out["high_jct_ms"] > 0 and out["low_jct_ms"] > 0):
         raise AssertionError(f"{mode}: JCTs {out}")
     return rec
@@ -587,6 +664,51 @@ def segment_profile(torch, low):
     torch.cuda.empty_cache()
 
 
+def tensor_core_check(lib) -> dict:
+    """The bf16 flash instances (``flash_fwd_tc<D, warpgroups>``) in the
+    built library: registers and spill bytes from ptxas's ``-v`` report
+    beside it, and the HGMMA (wgmma) instructions in ``cuobjdump -sass``.
+    Fails if an instance spills or has no HGMMA."""
+    inst = {}
+    name = None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"flash_fwd_tcILi(\d+)ELi(\d+)E", m.group(1))
+            name = f"D{t.group(1)} x{t.group(2)} warpgroups" if t else None
+            if name:
+                inst[name] = {"registers": None, "spill_bytes": 0,
+                              "hgmma": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            inst[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            inst[name]["registers"] = int(m.group(1))
+    cuobjdump = (shutil.which("cuobjdump")
+                 or "/usr/local/cuda/bin/cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            t = re.search(r"flash_fwd_tcILi(\d+)ELi(\d+)E", m.group(1))
+            name = f"D{t.group(1)} x{t.group(2)} warpgroups" if t else None
+        elif name in inst and "HGMMA" in line:
+            inst[name]["hgmma"] += 1
+    bad = {k: v for k, v in inst.items()
+           if v["spill_bytes"] or not v["hgmma"]}
+    if len(inst) != 8 or bad:
+        raise AssertionError(f"flash bf16 instances {inst}: expected 8, "
+                             f"each with HGMMA and no spills")
+    return inst
+
+
 def free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -628,22 +750,36 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.build_all(KERNELS)
+    libs = _build.build_all(KERNELS)
     log(f"[build] {', '.join(k + '.cu' for k in KERNELS)} built with nvcc "
         f"for sm_90a in {time.perf_counter() - t0:.1f} s (in parallel)")
+    log("  flash_attention bf16 instances (tensor cores): "
+        + json.dumps(tensor_core_check(libs["flash_attention"])))
 
     bf16, f32 = torch.bfloat16, torch.float32
     seed = 0
     log("[kernels] flash_attention vs its plain version")
     fl = {}
-    for case in TEST_CASES + [HI_SHAPE, LO_SHAPE, HYB_SHAPE, RAGGED,
-                              ALL_MASKED]:
+    for case in TEST_CASES + EDGE_CASES + [HI_SHAPE, LO_SHAPE, HYB_SHAPE,
+                                           RAGGED, ALL_MASKED]:
         for dtype in (f32, bf16):
             seed += 1
             fl[(case[:6], dtype)] = check_flash_case(torch, K, case, dtype,
                                                      seed)
-    fl["prompt"] = check_flash_case(torch, K, HYB_PROMPT, bf16, seed + 1)
-    fl["long"] = check_flash_case(torch, K, LONG, bf16, seed + 2)
+    # the paths' own layout: attend's transposed [B, S, H, D] views
+    for case in (HI_SHAPE, LO_SHAPE, HYB_SHAPE):
+        for dtype in (f32, bf16):
+            seed += 1
+            fl[("path", case[:6], dtype)] = check_flash_case(
+                torch, K, case, dtype, seed, path_layout=True)
+    fl["hi_prompt"] = check_flash_case(torch, K, HI_PROMPT, bf16, seed + 1,
+                                       path_layout=True)
+    fl["prompt"] = check_flash_case(torch, K, HYB_PROMPT, bf16, seed + 2,
+                                    path_layout=True)
+    fl["prompt_bhsd"] = check_flash_case(torch, K, HYB_PROMPT, bf16,
+                                         seed + 3)
+    fl["long"] = check_flash_case(torch, K, LONG, bf16, seed + 4)
+    seed += 4
 
     log("[kernels] decode_attention vs its plain version")
     dec = {}
@@ -684,11 +820,13 @@ def main() -> int:
     # so a one-ulp bf16 difference in any block can flip a row's argmax key
     # and the two runs drift apart with depth and length, while each
     # kernel call stays within one ulp of its plain version (held below)
-    gen_hyb = generate_check(torch, K, HYB, hyb_model, 2, 2100,
+    (_, hyb_batch, hyb_prompt), (_, hi_batch, hi_prompt) = GENERATE
+    gen_hyb = generate_check(torch, K, HYB, hyb_model, hyb_batch, hyb_prompt,
                              hold_logits=False)
     del hyb_model
     free(torch)
-    gen_hi = generate_check(torch, K, HI, None, 2, 1024, hold_logits=True)
+    gen_hi = generate_check(torch, K, HI, None, hi_batch, hi_prompt,
+                            hold_logits=True)
     free(torch)
 
     served = {}
@@ -714,9 +852,10 @@ def main() -> int:
         kernel_entry(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:79",
-            pair_e["flash_attention"], fl[(HI_SHAPE[:6], bf16)],
-            "B2 H32 Kh8 S48 D128 bf16 (qwen3-4b serving); launches: one "
-            "FIKIT serve_pair run of pair E"),
+            pair_e["flash_attention"], fl[("path", HI_SHAPE[:6], bf16)],
+            "B2 H32 Kh8 S48 D128 bf16 (qwen3-4b serving, attend's "
+            "transposed views); launches: one FIKIT serve_pair run of "
+            "pair E"),
         kernel_entry(
             "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:71",

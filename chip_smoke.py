@@ -9,16 +9,19 @@ Phases, each of which exits non-zero on failure:
 2. build: nvcc builds every kernel of the port's paths from the sources
    in this checkout (``src/repro_torch/csrc``) for sm_90a, one nvcc per
    source, all started together; every bf16 instance of the flash kernel
-   must show HGMMA (wgmma) in ``cuobjdump -sass`` and no spills in
-   ptxas's report;
+   must show HGMMA (wgmma) and every bf16 instance of the decode kernel
+   HMMA (mma.sync) in ``cuobjdump -sass``, and none may spill in ptxas's
+   report;
 3. kernels: flash_attention, decode_attention and rglru_scan, each
    against its plain PyTorch version on the card, at the test shapes, the
    shapes the paths give them (flash also on the paths' own layout:
    transposed views of [B, S, H, D]), ragged, tiling-edge, all-masked and
    long cases, in fp32 (tolerance 2e-5; rglru_scan 1e-4) and bf16 (2e-2;
-   bf16 flash also within 2 ** -6 of the plain output's size, per element:
-   |kernel - plain| / (|plain| + rms of the plain row over D));
-   prints the error and
+   bf16 flash and decode also within 2 ** -6 of the plain output's size,
+   per element: |kernel - plain| / (|plain| + rms of the plain row over
+   D)); all-masked decode rows give mean(v); decode's split plan at each
+   case (splits, CTAs, stages, shared and partial bytes); prints the error
+   and
    the median times of the kernel, the plain version and one PyTorch
    library call of the same function where there is one (a yardstick
    only), beside the least time the card could take (bytes over
@@ -123,6 +126,20 @@ DEC_HI = (2, 32, 8, 1040, 128, {}, 1039)    # qwen3-4b, generate phase
 DEC_HYB = (2, 16, 1, 2048, 256, dict(window=2048), 2115)   # wrapped ring
 DEC_MASKED = (1, 4, 2, 96, 64, dict(window=0), 50)
 DEC_LONG = (1, 32, 8, 32768, 128, {}, 32767)
+# the bf16 kernel's edges (tests/test_torch_decode_attention.py): G 1, 16,
+# 32 and 64 (one to four m16 head tiles); C 1000, off the 16-slot tile;
+# window and chunk borders inside a tile; splits all masked beside a
+# valid one; every slot masked over many splits (mean(v))
+DEC_EDGE = [
+    (1, 32, 32, 1000, 64, {}, 990),
+    (2, 16, 1, 1000, 128, dict(window=300), 999),
+    (1, 32, 1, 1040, 128, {}, 1030),
+    (1, 64, 1, 2048, 256, dict(window=2048), 2115),
+    (1, 8, 2, 512, 128, dict(window=37), 300),
+    (1, 8, 2, 512, 64, dict(chunk=40), 300),
+    (2, 32, 8, 1040, 128, dict(window=20), 1030),
+    (1, 16, 1, 1000, 256, dict(window=0), 500),
+]
 
 # rglru_scan: B, S, W, with h0
 RGLRU_CASES = [(8, 256, 256), (4, 128, 512), (16, 512, 128), (8, 384, 384)]
@@ -214,9 +231,15 @@ def finish_case(torch, label, out, want, tol, kernel_fn, plain_fn, lib_fn,
         err = f"{err:.3g} (scaled {extra['scaled_err']:.3g})"
     else:
         err = f"{err:.3g}"
+    plan = ""
+    if "plan" in extra:
+        plan = " | plan " + ", ".join(
+            f"{k} {extra['plan'][k]}" for k in ("splits", "split_len", "ctas",
+                                                "stages", "smem_bytes",
+                                                "partial_bytes"))
     log(f"  {label}: err {err} | kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.5f} ms "
-        f"({bound_by})")
+        f"({bound_by}){plan}")
     return rec
 
 
@@ -325,6 +348,23 @@ def check_decode_case(torch, K, case, dtype, seed, empty_from=None):
     out = ops.decode_attention(q, k, v, kpos, pos, **kw)
     want = ref.decode_attention_ref(q, k, v, kpos, pos, **kw)
     valid = ref.slot_mask(kpos, pos, kw.get("window"), kw.get("chunk"))
+    name = dtype_name(dtype)
+    label = f"decode_attention {case[:5]} {kw} pos {pos} {name}"
+    extra = {"shape": list(case[:5]), "kw": kw, "pos": pos, "dtype": name,
+             "valid_slots": int(valid.sum())}
+    if dtype == torch.bfloat16:
+        extra["plan"] = decode_plan(torch, B, H, Kh, C, D)
+        extra["scaled_err"] = scaled_err(torch, out, want)
+        if not extra["scaled_err"] < SCALED_TOL:
+            raise AssertionError(f"{label}: max|kernel - plain| / (|plain| "
+                                 f"+ row rms) = {extra['scaled_err']} (tol "
+                                 f"{SCALED_TOL})")
+    if not bool(valid.any()):                  # every slot masked: mean(v)
+        mean_v = v.float().mean(2).repeat_interleave(H // Kh, 1)
+        err = float((out.float() - mean_v).abs().max())
+        if not err < TOL[name]:
+            raise AssertionError(f"{label}: all masked, max|kernel - "
+                                 f"mean(v)| = {err}")
     # yardstick only: SDPA with a boolean mask, kv expanded outside the
     # timed call
     G = H // Kh
@@ -333,19 +373,27 @@ def check_decode_case(torch, K, case, dtype, seed, empty_from=None):
     q4, m4 = q[:, :, None], valid[None, None, None, :]
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q4, ke, ve, attn_mask=m4)
-    name = dtype_name(dtype)
     esz = 2 if dtype == torch.bfloat16 else 4
-    n_valid = int(valid.sum())
     bound = least_ms(esz * (2 * B * H * D + 2 * B * Kh * C * D) + 4 * C,
-                     4 * D * B * H * n_valid, name)
+                     4 * D * B * H * extra["valid_slots"], name)
     return finish_case(
-        torch, f"decode_attention {case[:5]} {kw} pos {pos} {name}", out,
-        want, TOL[name], lambda: ops.decode_attention(q, k, v, kpos, pos,
-                                                      **kw),
+        torch, label, out, want, TOL[name],
+        lambda: ops.decode_attention(q, k, v, kpos, pos, **kw),
         lambda: ref.decode_attention_ref(q, k, v, kpos, pos, **kw), lib,
-        5 if C >= 8192 else 20, bound,
-        {"shape": list(case[:5]), "kw": kw, "pos": pos, "dtype": name,
-         "valid_slots": n_valid})
+        5 if C >= 8192 else 20, bound, extra)
+
+
+def decode_plan(torch, B, H, Kh, C, D) -> dict:
+    """The bf16 decode kernel's split plan for this shape on this card,
+    its shared memory held to the library's own layout."""
+    from repro_torch.kernels.decode_attention import kernel
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = kernel.split_plan(B * Kh, H // Kh, C, D, sms)._asdict()
+    lib_smem = kernel.library().decode_attention_smem_bytes(1, D, H // Kh)
+    if lib_smem != plan["smem_bytes"]:
+        raise AssertionError(f"decode plan's shared memory {plan} differs "
+                             f"from the kernel's {lib_smem} bytes")
+    return plan
 
 
 # ------------------------------------------------------------ rglru cases
@@ -505,6 +553,29 @@ def prefill_times(torch, model, tokens, cfg, runs: int = 3) -> list:
     return times[1:]
 
 
+def generate(torch, model, tokens, steps, cfg):
+    """Prefill ``tokens`` (a cache GEN_STEPS beyond the prompt), then one
+    ``decode_step`` per row of ``steps``; returns the logits of every
+    step, each step's host-clock ms (around a synchronised call) and the
+    caches."""
+    from repro_torch.models import api
+    prompt = tokens.shape[1]
+    times = []
+    with torch.inference_mode():
+        logits, caches = api.prefill(model, tokens, cfg,
+                                     extra_capacity=GEN_STEPS)
+        outs = [logits]
+        for i in range(len(steps)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = api.decode_step(model, steps[i], prompt + i,
+                                             caches, cfg)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            outs.append(logits)
+    return outs, times, caches
+
+
 def generate_check(torch, K, name, model, batch, prompt, hold_logits):
     """Prefill ``prompt`` tokens, then GEN_STEPS decode steps (tokens
     drawn up front, so every run sees the same ones). Three runs: the
@@ -524,20 +595,7 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits):
                           dtype=torch.int32, device="cuda", generator=g)
 
     def run():
-        times = []
-        with torch.inference_mode():
-            logits, caches = api.prefill(model, tokens, cfg,
-                                         extra_capacity=GEN_STEPS)
-            outs = [logits]
-            for i in range(GEN_STEPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits, caches = api.decode_step(model, steps[i],
-                                                 prompt + i, caches, cfg)
-                torch.cuda.synchronize()
-                times.append(1e3 * (time.perf_counter() - t0))
-                outs.append(logits)
-        return outs, times, caches
+        return generate(torch, model, tokens, steps, cfg)
 
     prefill = prefill_times(torch, model, tokens, cfg)
     free(torch)
@@ -664,21 +722,38 @@ def segment_profile(torch, low):
     torch.cuda.empty_cache()
 
 
-def tensor_core_check(lib) -> dict:
-    """The bf16 flash instances (``flash_fwd_tc<D, warpgroups>``) in the
-    built library: registers and spill bytes from ptxas's ``-v`` report
-    beside it, and the HGMMA (wgmma) instructions in ``cuobjdump -sass``.
-    Fails if an instance spills or has no HGMMA."""
+# the bf16 tensor-core instances of each library: the kernel's mangled
+# name, how to label an instance, the SASS opcode it must show, and how
+# many instances there are
+TC_INSTANCES = {
+    "flash_attention": (r"flash_fwd_tcILi(\d+)ELi(\d+)E",
+                        lambda t: f"D{t.group(1)} x{t.group(2)} warpgroups",
+                        "HGMMA", 8),
+    "decode_attention": (r"decode_split_tcILi(\d+)E",
+                         lambda t: f"D{t.group(1)}", "HMMA", 3),
+}
+
+
+def tensor_core_check(lib, kernel: str) -> dict:
+    """The bf16 instances of ``kernel`` in the built library: registers
+    and spill bytes from ptxas's ``-v`` report beside it, and the count of
+    its tensor-core instruction (flash: HGMMA, wgmma; decode: HMMA,
+    mma.sync) in ``cuobjdump -sass``. Fails if an instance spills or has
+    none."""
+    pattern, label, opcode, expect = TC_INSTANCES[kernel]
+
+    def instance(symbol):
+        t = re.search(pattern, symbol)
+        return label(t) if t else None
     inst = {}
     name = None
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"flash_fwd_tcILi(\d+)ELi(\d+)E", m.group(1))
-            name = f"D{t.group(1)} x{t.group(2)} warpgroups" if t else None
+            name = instance(m.group(1))
             if name:
                 inst[name] = {"registers": None, "spill_bytes": 0,
-                              "hgmma": 0}
+                              opcode.lower(): 0}
             continue
         if name is None:
             continue
@@ -697,15 +772,14 @@ def tensor_core_check(lib) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            t = re.search(r"flash_fwd_tcILi(\d+)ELi(\d+)E", m.group(1))
-            name = f"D{t.group(1)} x{t.group(2)} warpgroups" if t else None
-        elif name in inst and "HGMMA" in line:
-            inst[name]["hgmma"] += 1
+            name = instance(m.group(1))
+        elif name in inst and re.search(rf"\b{opcode}\b", line):
+            inst[name][opcode.lower()] += 1
     bad = {k: v for k, v in inst.items()
-           if v["spill_bytes"] or not v["hgmma"]}
-    if len(inst) != 8 or bad:
-        raise AssertionError(f"flash bf16 instances {inst}: expected 8, "
-                             f"each with HGMMA and no spills")
+           if v["spill_bytes"] or not v[opcode.lower()]}
+    if len(inst) != expect or bad:
+        raise AssertionError(f"{kernel} bf16 instances {inst}: expected "
+                             f"{expect}, each with {opcode} and no spills")
     return inst
 
 
@@ -719,7 +793,8 @@ def kernel_entry(name, source, replaces, launches, rec, shape):
             "library_ms")
     return dict({"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches},
-                **{k: rec[k] for k in keys}, shape=shape)
+                **{k: rec[k] for k in keys + ("plan",) if k in rec},
+                shape=shape)
 
 
 def main() -> int:
@@ -753,8 +828,9 @@ def main() -> int:
     libs = _build.build_all(KERNELS)
     log(f"[build] {', '.join(k + '.cu' for k in KERNELS)} built with nvcc "
         f"for sm_90a in {time.perf_counter() - t0:.1f} s (in parallel)")
-    log("  flash_attention bf16 instances (tensor cores): "
-        + json.dumps(tensor_core_check(libs["flash_attention"])))
+    for name in TC_INSTANCES:
+        log(f"  {name} bf16 instances (tensor cores): "
+            + json.dumps(tensor_core_check(libs[name], name)))
 
     bf16, f32 = torch.bfloat16, torch.float32
     seed = 0
@@ -783,15 +859,17 @@ def main() -> int:
 
     log("[kernels] decode_attention vs its plain version")
     dec = {}
-    for case in DECODE_CASES + [DEC_HI, DEC_HYB, DEC_MASKED]:
+    for case in DECODE_CASES + DEC_EDGE + [DEC_HI, DEC_HYB, DEC_MASKED]:
         for dtype in (f32, bf16):
             seed += 1
-            dec[(case[:5], dtype)] = check_decode_case(torch, K, case,
-                                                       dtype, seed)
-    seed += 1
-    dec["ring"] = check_decode_case(torch, K, RING_CASE, f32, seed,
-                                    empty_from=100)
+            dec[(case[:5], str(case[5]), dtype)] = check_decode_case(
+                torch, K, case, dtype, seed)
+    for dtype in (f32, bf16):
+        seed += 1
+        dec[("ring", dtype)] = check_decode_case(torch, K, RING_CASE, dtype,
+                                                 seed, empty_from=100)
     dec["long"] = check_decode_case(torch, K, DEC_LONG, bf16, seed + 1)
+    seed += 1
 
     log("[kernels] rglru_scan vs its plain version")
     rg = {}
@@ -859,7 +937,8 @@ def main() -> int:
         kernel_entry(
             "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:71",
-            gen_hi["launches"]["decode_attention"], dec[(DEC_HI[:5], bf16)],
+            gen_hi["launches"]["decode_attention"],
+            dec[(DEC_HI[:5], "{}", bf16)],
             "B2 H32 Kh8 C1040 D128 bf16 (qwen3-4b generation); launches: "
             f"qwen3-4b generate, {GEN_STEPS} steps"),
         kernel_entry(

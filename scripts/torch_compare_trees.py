@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Compare checkouts of the PyTorch/CUDA port on one card: the time of
-``api.prefill`` and of the flash attention kernel at the paths' shapes.
+``api.prefill``, of a decode step, and of the flash and decode attention
+kernels at the paths' shapes.
 
     python3 scripts/torch_compare_trees.py PARENT . . PARENT
 
@@ -11,10 +12,13 @@ versions are compared on one card in turns (parent, change, change,
 parent). Per tree it prints one JSON line: the median of 3 prefills
 (after a warm-up; host clock around a synchronised call) of full-width
 qwen3-4b (B2, prompt 1024) and recurrentgemma-9b (B2, prompt 2100), random
-bf16 weights from seed 0; and the flash kernel's median device time (ms)
-on bf16 transposed [B, S, H, D] views, as ``attend`` hands them over.
-Shapes, the prefill timing and the device timer are ``chip_smoke.py``'s
-(this checkout's, for every tree measured).
+bf16 weights from seed 0, and the median of the 16 decode steps after a
+prefill; the flash kernel's median device time (ms) on bf16 transposed
+[B, S, H, D] views, as ``attend`` hands them over; and the decode
+kernel's at ``DEC_HI``, ``DEC_HYB`` and ``DEC_LONG`` on bf16 transposed
+views of the model's [B, C, Kh, D] cache, as ``decode_attend`` hands
+them over (no copies). Shapes, the timings and the device timer are
+``chip_smoke.py``'s (this checkout's, for every tree measured).
 The first line is the card's ``nvidia-smi`` name and power limit. Needs a
 CUDA card; imports nothing of JAX.
 """
@@ -38,6 +42,7 @@ def measure(root: str) -> dict:
     import torch
     import chip_smoke as cs
     from repro_torch.config import get_config
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import api
     if not torch.cuda.is_available():
@@ -51,6 +56,10 @@ def measure(root: str) -> dict:
                                dtype=torch.int32, device="cuda", generator=g)
         out[f"{name}_prefill_ms"] = statistics.median(
             cs.prefill_times(torch, model, tokens, cfg))
+        steps = torch.randint(0, cfg.vocab_size, (cs.GEN_STEPS, batch, 1),
+                              dtype=torch.int32, device="cuda", generator=g)
+        _, times, _ = cs.generate(torch, model, tokens, steps, cfg)
+        out[f"{name}_decode_step_ms"] = statistics.median(times)
         del model
         torch.cuda.empty_cache()
     shapes = {"qwen3_serving": cs.HI_SHAPE, "stablelm_serving": cs.LO_SHAPE,
@@ -64,6 +73,16 @@ def measure(root: str) -> dict:
         out[f"flash_{label}_ms"] = cs.device_ms(
             torch, lambda: ops.flash_attention(q, k, v, **kw),
             5 if Sq >= 2048 else 20)
+    shapes = {"qwen3": cs.DEC_HI, "hybrid": cs.DEC_HYB, "long": cs.DEC_LONG}
+    for label, (B, H, Kh, C, D, kw, pos) in shapes.items():
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q = torch.randn(B, H, D, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(B, C, Kh, D, generator=g, device="cuda")
+                .bfloat16().transpose(1, 2) for _ in range(2))
+        kpos = cs.ring_kpos(torch, C, pos)
+        out[f"decode_{label}_ms"] = cs.device_ms(
+            torch, lambda: dec_ops.decode_attention(q, k, v, kpos, pos, **kw),
+            5 if C >= 8192 else 20)
     return out
 
 

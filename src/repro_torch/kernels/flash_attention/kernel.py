@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _layout
 
 #: the kernel's instances: head dims and input types
 HEAD_DIMS = (64, 96, 128, 256)
@@ -49,13 +49,9 @@ def check_tma_layout(name: str, t: torch.Tensor) -> None:
     tensor map: a base address and every stride of a dim longer than 1 a
     multiple of 16 bytes, the last dim contiguous. Every layout of the
     paths passes (D * 2 >= 128 bytes)."""
-    esz = t.element_size()
-    bad = [f"data_ptr {t.data_ptr():#x}"] if t.data_ptr() % TMA_ALIGN else []
+    bad = _layout.misaligned(t, TMA_ALIGN)
     if t.stride(-1) != 1:
         bad.append(f"last-dim stride {t.stride(-1)}")
-    bad += [f"dim {i} stride {st} ({st * esz} bytes)"
-            for i, (n, st) in enumerate(zip(t.shape[:-1], t.stride()[:-1]))
-            if n > 1 and (st * esz) % TMA_ALIGN]
     if bad:
         raise ValueError(f"flash_attention kernel: {name} is not aligned to "
                          f"{TMA_ALIGN} bytes for TMA: {', '.join(bad)}")

@@ -16,7 +16,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.decode_attention import ops  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
-    TILE, decode_attention_kernel, split_plan,
+    HEAD_TILE, SMEM_LIMIT, TILE, check_async_layout, decode_attention_kernel,
+    split_plan,
 )
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref,
@@ -37,8 +38,27 @@ HYBRID_CASE = (2, 16, 1, 2048, 256, dict(window=2048), 2110)
 LONG_CASE = (1, 32, 8, 32768, 128, {}, 32767)
 # window 0 masks every slot: the oracle returns mean(v)
 MASKED_CASE = (1, 4, 2, 96, 64, dict(window=0), 50)
+# the bf16 kernel's edges: G 1, 16, 32 and 64 query heads per kv head (one
+# to four m16 head tiles); C 1000, off the 16-slot tile; window and chunk
+# borders inside a tile; a window that leaves most splits all masked next
+# to a valid one; every slot masked over many splits (mean(v))
+EDGE_CASES = [
+    (1, 32, 32, 1000, 64, {}, 990),
+    (2, 16, 1, 1000, 128, dict(window=300), 999),
+    (1, 32, 1, 1040, 128, {}, 1030),
+    (1, 64, 1, 2048, 256, dict(window=2048), 2115),
+    (1, 8, 2, 512, 128, dict(window=37), 300),
+    (1, 8, 2, 512, 64, dict(chunk=40), 300),
+    (2, 32, 8, 1040, 128, dict(window=20), 1030),
+    (1, 16, 1, 1000, 256, dict(window=0), 500),
+]
+# the decode paths' shapes: (B * Kh, G, C, D)
+PATH_PLANS = [(16, 4, 1040, 128), (2, 16, 2048, 256), (8, 4, 32768, 128)]
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16, per element, over the plain output's size (P is rounded to bf16
+# before P V): |kernel - plain| / (|plain| + rms of the plain row over D)
+SCALED_TOL = 2 ** -6
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -179,16 +199,73 @@ def test_all_masked_row_is_mean_of_v(jax_decode):
     assert np.max(np.abs(_f32(out) - _f32(want))) < 2e-5
 
 
-@pytest.mark.parametrize("groups,C,sms", [
-    (16, 1040, 132), (2, 2048, 132), (8, 32768, 132), (1, 5, 132),
-    (264, 64, 132), (96, 512, 132)])
-def test_split_plan_covers_the_cache(groups, C, sms):
+@pytest.mark.parametrize("groups,G,C,D,sms", [
+    (16, 4, 1040, 128, 132), (2, 16, 2048, 256, 132), (8, 4, 32768, 128, 132),
+    (1, 1, 5, 64, 132), (264, 1, 64, 64, 132), (96, 2, 512, 128, 132)])
+def test_split_plan_covers_the_cache(groups, G, C, D, sms):
     """Splits are whole tiles, cover every slot, none starts past C, and
-    about two CTAs per SM are asked for."""
-    splits, split_len = split_plan(groups, C, sms)
-    assert split_len % TILE == 0 and split_len > 0
-    assert (splits - 1) * split_len < C <= splits * split_len
-    assert splits <= -(-2 * sms // groups) or split_len == TILE
+    no more CTAs are asked for than one wave holds, unless one split per
+    group is already too many."""
+    plan = split_plan(groups, G, C, D, sms)
+    assert plan.split_len % TILE == 0 and plan.split_len > 0
+    assert (plan.splits - 1) * plan.split_len < C <= plan.splits * plan.split_len
+    assert plan.ctas <= sms * plan.ctas_per_sm or plan.splits == 1
+
+
+@pytest.mark.parametrize("G", [1, 4, 16, 32, 64])
+@pytest.mark.parametrize("shape", PATH_PLANS, ids=str)
+def test_split_plan_at_path_shapes(shape, G):
+    """At the paths' cache lengths and head dims, for every group size:
+    the slots are covered by whole 16-slot tiles, the head tiles are
+    ceil(G / 16), every warp has a tile, the partials stay under the
+    plan's bound, and a CTA's shared memory fits the card's 227 KB."""
+    groups, _, C, D = shape
+    plan = split_plan(groups, G, C, D, 132)
+    assert plan.split_len % TILE == 0
+    assert (plan.splits - 1) * plan.split_len < C <= plan.splits * plan.split_len
+    assert plan.head_tiles == -(-G // HEAD_TILE)
+    assert plan.ctas == plan.splits * groups * plan.head_tiles
+    assert plan.split_len >= 4 * TILE or plan.splits == 1
+    assert plan.partial_bytes == plan.splits * G * D * 4 * groups
+    assert plan.partial_bytes <= plan.partial_limit
+    assert plan.partial_limit <= max(C * D * groups, G * D * 4 * groups)
+    assert plan.smem_bytes <= SMEM_LIMIT and plan.stages >= 3
+    assert 1 <= plan.ctas_per_sm and plan.ctas <= 132 * plan.ctas_per_sm
+
+
+def test_split_plan_at_the_decode_paths():
+    """The plans chip_smoke.py prints: qwen3-4b's cache in 13 splits of 80
+    slots at two CTAs an SM; recurrentgemma-9b's in 32 of 64 (the
+    partials' bound); the long cache in one wave of 264 CTAs."""
+    got = [split_plan(*shape, 132)[:5] for shape in PATH_PLANS]
+    assert got == [(13, 80, 1, 208, 2), (32, 64, 1, 64, 1),
+                   (33, 1008, 1, 264, 2)]
+
+
+@pytest.mark.parametrize("layout", ["BKhCD", "model BCKhD view", "kpos"])
+def test_async_layout_accepts_the_paths(layout):
+    """The model's [B, C, Kh, D] cache handed over as a transposed view,
+    a contiguous cache and kpos all pass the cp.async check."""
+    if layout == "kpos":
+        t = torch.arange(1040, dtype=torch.int32)
+    elif layout == "BKhCD":
+        t = torch.zeros(2, 8, 1040, 128, dtype=torch.bfloat16)
+    else:
+        t = torch.zeros(2, 1040, 8, 128, dtype=torch.bfloat16).transpose(1, 2)
+    check_async_layout(layout, t)
+
+
+@pytest.mark.parametrize("bad", ["offset base", "odd row stride"])
+def test_async_layout_rejects_misaligned(bad):
+    """A view whose base or row stride is off 16 bytes would break the
+    16-byte copies: it raises ValueError, not a wrong read."""
+    if bad == "offset base":      # 3 elements (6 bytes) into the storage
+        flat = torch.zeros(3 + 2 * 8 * 1040 * 128, dtype=torch.bfloat16)
+        t = flat[3:].view(2, 8, 1040, 128)
+    else:                         # rows 130 elements (260 bytes) apart
+        t = torch.zeros(2, 8, 1040, 130, dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="cp.async"):
+        check_async_layout("k", t)
 
 
 def test_cpu_tensors_go_to_the_plain_version():
@@ -212,11 +289,17 @@ def test_kernel_refuses_cpu_tensors():
 
 
 # ------------------------------------------------------- kernel (CUDA card)
+def _scaled_err(out, want) -> float:
+    out, want = out.float(), want.float()
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    return float(((out - want).abs() / (want.abs() + rms)).max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize(
-    "case", DECODE_CASES + [RAGGED_CASE, HYBRID_CASE, MASKED_CASE],
-    ids=_case_id)
+    "case", DECODE_CASES + [RAGGED_CASE, HYBRID_CASE, MASKED_CASE]
+    + EDGE_CASES, ids=_case_id)
 def test_kernel_matches_ref_on_card(case, dtype, cuda):
     q, k, v = _torch(_numpy_inputs(case), dtype, cuda)
     kpos = torch.from_numpy(_kpos(case)).to(cuda)
@@ -228,6 +311,25 @@ def test_kernel_matches_ref_on_card(case, dtype, cuda):
     want = decode_attention_ref(q, k, v, kpos, pos, **kw)
     assert out.dtype == dtype and out.shape == want.shape
     assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
+    if dtype == torch.bfloat16:
+        assert _scaled_err(out, want) < SCALED_TOL
+    if kw.get("window") == 0:                  # every slot masked: mean(v)
+        G = q.shape[1] // k.shape[1]
+        mean_v = v.float().mean(dim=2).repeat_interleave(G, dim=1)
+        assert float((out.float() - mean_v).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_kernel_empty_slots_on_card(dtype, cuda):
+    """Empty ring slots (kpos -1) inside and after the valid ones."""
+    case = (1, 4, 2, 256, 64, dict(window=64), 99)
+    q, k, v = _torch(_numpy_inputs(case), dtype, cuda)
+    kpos = torch.from_numpy(np.where(np.arange(256) < 100, np.arange(256),
+                                     -1).astype(np.int32)).to(cuda)
+    out = ops.decode_attention(q, k, v, kpos, 99, window=64)
+    want = decode_attention_ref(q, k, v, kpos, 99, window=64)
+    assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -237,6 +339,7 @@ def test_kernel_long_cache_on_card(cuda):
     out = ops.decode_attention(q, k, v, kpos, LONG_CASE[6])
     want = decode_attention_ref(q, k, v, kpos, LONG_CASE[6])
     assert float((out.float() - want.float()).abs().max()) < 2e-2
+    assert _scaled_err(out, want) < SCALED_TOL
 
 
 @pytest.mark.cuda

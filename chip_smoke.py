@@ -10,8 +10,9 @@ Phases, each of which exits non-zero on failure:
    in this checkout (``src/repro_torch/csrc``) for sm_90a, one nvcc per
    source, all started together; every bf16 instance of the flash kernel
    must show HGMMA (wgmma) and every bf16 instance of the decode kernel
-   HMMA (mma.sync) in ``cuobjdump -sass``, and none may spill in ptxas's
-   report;
+   HMMA (mma.sync) in ``cuobjdump -sass``, and none of them, nor either
+   instance of the rglru_scan kernel (fp32, bf16; no tensor cores), may
+   spill in ptxas's report;
 3. kernels: flash_attention, decode_attention and rglru_scan, each
    against its plain PyTorch version on the card, at the test shapes, the
    shapes the paths give them (flash also on the paths' own layout:
@@ -20,13 +21,15 @@ Phases, each of which exits non-zero on failure:
    bf16 flash and decode also within 2 ** -6 of the plain output's size,
    per element: |kernel - plain| / (|plain| + rms of the plain row over
    D)); all-masked decode rows give mean(v); decode's split plan at each
-   case (splits, CTAs, stages, shared and partial bytes); prints the error
-   and
-   the median times of the kernel, the plain version and one PyTorch
-   library call of the same function where there is one (a yardstick
-   only), beside the least time the card could take (bytes over
-   3.35 TB/s or operations over the peak rate of the input type,
-   whichever is larger);
+   case (splits, CTAs, stages, shared and partial bytes) and rglru_scan's
+   scan plan (column tile, segments, threads, blocks, CTAs), its rows a
+   thread held to the library's; rglru_scan also at S = 1, S one around
+   a block and two, W off the column tile, B 1 at S 8192 and bf16 at the
+   prompt; prints the error and the median times of the kernel, the
+   plain version and one PyTorch library call of the same function where
+   there is one (a yardstick only), beside the least time the card
+   could take (bytes over 3.35 TB/s or operations over the peak rate of
+   the input type, whichever is larger);
 4. model: full-width, full-depth qwen3-4b, stablelm-1.6b and
    recurrentgemma-9b (random bf16 weights from a seed) give finite
    logits of the right shape, and one layer of each dense model and one
@@ -76,6 +79,10 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # bf16 flash, per element, over the plain output's size: two bf16 ulps
 # (a long row's outputs are about its length ** -0.5, far under 2e-2)
 SCALED_TOL = 2 ** -6
+# the fields of a kernel's plan that a case's line shows (decode's split
+# plan, rglru_scan's scan plan)
+PLAN_SHOWN = ("splits", "split_len", "tw", "nseg", "threads", "blocks",
+              "ctas", "stages", "smem_bytes", "partial_bytes")
 RGLRU_TOL = 1e-4
 HI, LO, HYB = "qwen3-4b", "stablelm-1.6b", "recurrentgemma-9b"
 REQUESTS, MEASURE_RUNS = 4, 3
@@ -145,6 +152,12 @@ DEC_EDGE = [
 RGLRU_CASES = [(8, 256, 256), (4, 128, 512), (16, 512, 128), (8, 384, 384)]
 RG_SERVE = (4, 48, 4096)              # recurrentgemma-9b serving, fp32
 RG_PREFILL = (2, 2100, 4096)          # the generate phase's prompt
+RG_LONG = (1, 8192, 4096)             # B 1: 32-column tiles underfill
+# the scan's edges (tests/test_torch_rglru_scan.py): S = 1; S one short of
+# and one past one and two of the prompt plan's 96-row blocks; W off the
+# 32- and the 16-column tile
+RG_EDGE = [(4, 1, 4096), (2, 95, 4096), (2, 97, 4096), (2, 191, 4096),
+           (2, 193, 4096), (2, 300, 4100), (3, 129, 1001)]
 
 
 _T0 = time.perf_counter()
@@ -234,9 +247,7 @@ def finish_case(torch, label, out, want, tol, kernel_fn, plain_fn, lib_fn,
     plan = ""
     if "plan" in extra:
         plan = " | plan " + ", ".join(
-            f"{k} {extra['plan'][k]}" for k in ("splits", "split_len", "ctas",
-                                                "stages", "smem_bytes",
-                                                "partial_bytes"))
+            f"{k} {v}" for k, v in extra["plan"].items() if k in PLAN_SHOWN)
     log(f"  {label}: err {err} | kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.5f} ms "
         f"({bound_by}){plan}")
@@ -397,10 +408,9 @@ def decode_plan(torch, B, H, Kh, C, D) -> dict:
 
 
 # ------------------------------------------------------------ rglru cases
-def check_rglru_case(torch, K, case, dtype, seed, with_h0=True):
-    """rglru_scan vs its plain version on the card. No single PyTorch
-    call computes a linear recurrence, so there is no library time."""
-    ops, ref = K["rglru_scan"]
+def rglru_inputs(torch, case, dtype, seed, with_h0=True):
+    """a in [0.3, 0.999), b of scale 0.1 and an fp32 h0 (or None), drawn
+    on the card from ``seed``."""
     B, S, W = case
     g = torch.Generator(device="cuda").manual_seed(seed)
     a = (0.3 + 0.699 * torch.rand(B, S, W, generator=g, device="cuda")
@@ -408,9 +418,19 @@ def check_rglru_case(torch, K, case, dtype, seed, with_h0=True):
     b = (0.1 * torch.randn(B, S, W, generator=g, device="cuda")).to(dtype)
     h0 = (torch.randn(B, W, generator=g, device="cuda") if with_h0
           else None)
+    return a, b, h0
+
+
+def check_rglru_case(torch, K, case, dtype, seed, with_h0=True):
+    """rglru_scan vs its plain version on the card. No single PyTorch
+    call computes a linear recurrence, so there is no library time."""
+    ops, ref = K["rglru_scan"]
+    B, S, W = case
+    a, b, h0 = rglru_inputs(torch, case, dtype, seed, with_h0)
     out = ops.rglru_scan(a, b, h0)
     want = ref.rglru_scan_ref(a, b, h0)
     name = dtype_name(dtype)
+    plan = rglru_plan(torch, B, S, W, dtype)
     esz = 2 if dtype == torch.bfloat16 else 4
     bound = least_ms(3 * esz * B * S * W + (4 * B * W if with_h0 else 0),
                      2 * B * S * W, "float32")
@@ -421,7 +441,20 @@ def check_rglru_case(torch, K, case, dtype, seed, with_h0=True):
         lambda: ops.rglru_scan(a, b, h0),
         lambda: ref.rglru_scan_ref(a, b, h0), None,
         20 if S <= 512 else 4, bound,
-        {"shape": list(case), "h0": with_h0, "dtype": name}, plain_n=1)
+        {"shape": list(case), "h0": with_h0, "dtype": name, "plan": plan},
+        plain_n=1)
+
+
+def rglru_plan(torch, B, S, W, dtype) -> dict:
+    """The scan's plan for this shape on this card, its rows a thread
+    holds held to the library's own."""
+    from repro_torch.kernels.rglru_scan import kernel
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib_rows = kernel.library().rglru_scan_rows()
+    if lib_rows != kernel.ROWS:
+        raise AssertionError(f"rglru plan's {kernel.ROWS} rows a thread "
+                             f"differ from the kernel's {lib_rows}")
+    return kernel.scan_plan(B, S, W, dtype, sms)._asdict()
 
 
 # ----------------------------------------------------------- model phases
@@ -722,25 +755,29 @@ def segment_profile(torch, low):
     torch.cuda.empty_cache()
 
 
-# the bf16 tensor-core instances of each library: the kernel's mangled
-# name, how to label an instance, the SASS opcode it must show, and how
-# many instances there are
-TC_INSTANCES = {
+# the instances the build phase checks in each library: the kernel's
+# mangled name, how to label an instance, the SASS opcode it must show
+# (None: no tensor cores), and how many instances there are. flash and
+# decode: their bf16 tensor-core instances; rglru_scan: both of its own.
+INSTANCES = {
     "flash_attention": (r"flash_fwd_tcILi(\d+)ELi(\d+)E",
                         lambda t: f"D{t.group(1)} x{t.group(2)} warpgroups",
                         "HGMMA", 8),
     "decode_attention": (r"decode_split_tcILi(\d+)E",
                          lambda t: f"D{t.group(1)}", "HMMA", 3),
+    "rglru_scan": (r"rglru_scan_splitI(f|13__nv_bfloat16)E",
+                   lambda t: "fp32" if t.group(1) == "f" else "bf16",
+                   None, 2),
 }
 
 
-def tensor_core_check(lib, kernel: str) -> dict:
-    """The bf16 instances of ``kernel`` in the built library: registers
-    and spill bytes from ptxas's ``-v`` report beside it, and the count of
-    its tensor-core instruction (flash: HGMMA, wgmma; decode: HMMA,
-    mma.sync) in ``cuobjdump -sass``. Fails if an instance spills or has
-    none."""
-    pattern, label, opcode, expect = TC_INSTANCES[kernel]
+def instance_check(lib, kernel: str) -> dict:
+    """The checked instances of ``kernel`` in the built library:
+    registers and spill bytes from ptxas's ``-v`` report beside it, and
+    the count of its tensor-core instruction (flash: HGMMA, wgmma;
+    decode: HMMA, mma.sync) in ``cuobjdump -sass``. Fails if an instance
+    spills, or has no tensor-core instruction where one is expected."""
+    pattern, label, opcode, expect = INSTANCES[kernel]
 
     def instance(symbol):
         t = re.search(pattern, symbol)
@@ -752,8 +789,9 @@ def tensor_core_check(lib, kernel: str) -> dict:
         if m:
             name = instance(m.group(1))
             if name:
-                inst[name] = {"registers": None, "spill_bytes": 0,
-                              opcode.lower(): 0}
+                inst[name] = {"registers": None, "spill_bytes": 0}
+                if opcode:
+                    inst[name][opcode.lower()] = 0
             continue
         if name is None:
             continue
@@ -764,6 +802,12 @@ def tensor_core_check(lib, kernel: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             inst[name]["registers"] = int(m.group(1))
+    bad = {k: v for k, v in inst.items() if v["spill_bytes"]}
+    if opcode is None:
+        if len(inst) != expect or bad:
+            raise AssertionError(f"{kernel} instances {inst}: expected "
+                                 f"{expect}, none with spills")
+        return inst
     cuobjdump = (shutil.which("cuobjdump")
                  or "/usr/local/cuda/bin/cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
@@ -828,9 +872,10 @@ def main() -> int:
     libs = _build.build_all(KERNELS)
     log(f"[build] {', '.join(k + '.cu' for k in KERNELS)} built with nvcc "
         f"for sm_90a in {time.perf_counter() - t0:.1f} s (in parallel)")
-    for name in TC_INSTANCES:
-        log(f"  {name} bf16 instances (tensor cores): "
-            + json.dumps(tensor_core_check(libs[name], name)))
+    for name, (_, _, opcode, _) in INSTANCES.items():
+        what = "bf16 instances (tensor cores)" if opcode else "instances"
+        log(f"  {name} {what}: " + json.dumps(instance_check(libs[name],
+                                                                name)))
 
     bf16, f32 = torch.bfloat16, torch.float32
     seed = 0
@@ -873,12 +918,17 @@ def main() -> int:
 
     log("[kernels] rglru_scan vs its plain version")
     rg = {}
-    for case in RGLRU_CASES + [RG_SERVE, RG_PREFILL]:
+    for case in RGLRU_CASES + [RG_SERVE, RG_PREFILL] + RG_EDGE + [RG_LONG]:
         seed += 1
         rg[case] = check_rglru_case(torch, K, case, f32, seed)
     rg["no_h0"] = check_rglru_case(torch, K, RG_SERVE, f32, seed + 1,
                                    with_h0=False)
     rg["bf16"] = check_rglru_case(torch, K, RG_SERVE, bf16, seed + 2)
+    rg["prompt_no_h0"] = check_rglru_case(torch, K, RG_PREFILL, f32,
+                                          seed + 3, with_h0=False)
+    rg["prompt_bf16"] = check_rglru_case(torch, K, RG_PREFILL, bf16,
+                                         seed + 4)
+    seed += 4
     free(torch)
 
     log("[model] full-size models, kernels vs plain versions in a block "

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare checkouts of the PyTorch/CUDA port on one card: the time of
 ``api.prefill``, of a decode step, and of the flash and decode attention
-kernels at the paths' shapes.
+and RG-LRU scan kernels at the paths' shapes.
 
     python3 scripts/torch_compare_trees.py PARENT . . PARENT
 
@@ -17,7 +17,9 @@ prefill; the flash kernel's median device time (ms) on bf16 transposed
 [B, S, H, D] views, as ``attend`` hands them over; and the decode
 kernel's at ``DEC_HI``, ``DEC_HYB`` and ``DEC_LONG`` on bf16 transposed
 views of the model's [B, C, Kh, D] cache, as ``decode_attend`` hands
-them over (no copies). Shapes, the timings and the device timer are
+them over (no copies); and the scan kernel's at ``RG_SERVE`` and
+``RG_PREFILL`` on fp32 a, b and h0, as the rec blocks hand them over.
+Shapes, the timings and the device timer are
 ``chip_smoke.py``'s (this checkout's, for every tree measured).
 The first line is the card's ``nvidia-smi`` name and power limit. Needs a
 CUDA card; imports nothing of JAX.
@@ -44,6 +46,7 @@ def measure(root: str) -> dict:
     from repro_torch.config import get_config
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.models import api
     if not torch.cuda.is_available():
         raise SystemExit("torch_compare_trees: no CUDA device")
@@ -83,6 +86,12 @@ def measure(root: str) -> dict:
         out[f"decode_{label}_ms"] = cs.device_ms(
             torch, lambda: dec_ops.decode_attention(q, k, v, kpos, pos, **kw),
             5 if C >= 8192 else 20)
+    for label, case in {"serving": cs.RG_SERVE,
+                        "prompt": cs.RG_PREFILL}.items():
+        a, b, h0 = cs.rglru_inputs(torch, case, torch.float32, 0)
+        out[f"rglru_{label}_ms"] = cs.device_ms(
+            torch, lambda: rg_ops.rglru_scan(a, b, h0),
+            20 if case[1] <= 512 else 4)
     return out
 
 

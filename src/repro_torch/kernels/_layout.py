@@ -1,8 +1,17 @@
-"""Layout checks shared by the kernels' bindings: the 16-byte copies that
-feed shared memory (TMA, cp.async) need 16-byte-aligned addresses."""
+"""What the kernels' bindings share: layout checks (the 16-byte copies
+that feed shared memory, TMA and cp.async, need 16-byte-aligned
+addresses) and the card's SM count, which their launch plans fill."""
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def misaligned(t: torch.Tensor, align: int) -> list:

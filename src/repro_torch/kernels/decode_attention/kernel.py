@@ -8,7 +8,6 @@ never at import, so the CPU tests import this module without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-import functools
 import operator
 from typing import NamedTuple
 
@@ -55,11 +54,6 @@ _SIGNATURES = {
 def library() -> ctypes.CDLL:
     """The kernel's library, built by nvcc on the first call."""
     return _build.load("decode_attention", _SIGNATURES)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def smem_bytes(D: int) -> int:
@@ -187,7 +181,7 @@ def decode_attention_kernel(q, k, v, kpos, pos: int, *, window=None,
     Kh, C = k.shape[1], k.shape[2]
     G = H // Kh
     scale = scale if scale is not None else D ** -0.5
-    plan = split_plan(B * Kh, G, C, D, _sm_count(q.device.index or 0))
+    plan = split_plan(B * Kh, G, C, D, _layout.sm_count(q.device.index or 0))
     splits = plan.splits
     dev = q.device
     o = torch.empty((B, H, D), dtype=q.dtype, device=dev)

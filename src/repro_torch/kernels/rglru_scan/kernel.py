@@ -8,18 +8,31 @@ never at import, so the CPU tests import this module without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _layout
 
 #: the kernel's input types
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's geometry (``csrc/rglru_scan.cu``): rows of a block each
+#: thread holds, most threads a CTA, the column tiles it takes
+ROWS = 16
+MAX_THREADS = 256
+TILE_WIDTHS = (32, 16, 8)
+#: the most threads a CTA that ``scan_plan`` takes
+PLAN_THREADS = 192
+#: a tile's row should read at least one 32-byte sector
+SECTOR = 32
+#: grid dimension x and the kernel's int arguments
+INT_MAX = 2 ** 31 - 1
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # a, b, h0 (or null), h; dtype, B, S, W, stream
-    "rglru_scan_fwd": ([_P] * 4 + [_I] * 4 + [_P], ctypes.c_int),
+    # a, b, h0 (or null), h; dtype, B, S, W, tw, nseg, stream
+    "rglru_scan_fwd": ([_P] * 4 + [_I] * 6 + [_P], ctypes.c_int),
+    "rglru_scan_rows": ([], ctypes.c_int),
     "rglru_scan_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -27,6 +40,49 @@ _SIGNATURES = {
 def library() -> ctypes.CDLL:
     """The kernel's library, built by nvcc on the first call."""
     return _build.load("rglru_scan", _SIGNATURES)
+
+
+class Plan(NamedTuple):
+    """How a launch cuts [B, S, W]: CTAs of ``tw`` columns (one a lane)
+    by ``nseg`` segments of ``ROWS`` rows, walking S in ``blocks`` blocks
+    of ``block_rows`` rows; CTA i takes batch row i // tiles and column
+    tile i % tiles."""
+    tw: int
+    nseg: int
+    threads: int
+    block_rows: int
+    blocks: int
+    tiles: int
+    ctas: int
+
+
+def plan_for(B: int, S: int, W: int, tw: int, nseg: int) -> Plan:
+    """The launch the kernel makes for ``tw`` columns and ``nseg``
+    segments a CTA."""
+    block_rows = nseg * ROWS
+    tiles = -(-W // tw)
+    return Plan(tw=tw, nseg=nseg, threads=tw * nseg, block_rows=block_rows,
+                blocks=-(-S // block_rows), tiles=tiles, ctas=B * tiles)
+
+
+def scan_plan(B: int, S: int, W: int, dtype: torch.dtype, sms: int) -> Plan:
+    """The plan for a [B, S, W] scan of ``dtype`` on a card of ``sms``
+    SMs:
+
+    - the widest column tile whose grid still gives every SM a CTA (at
+      B = 1, W = 4096: 16 columns, 256 CTAs), but none whose row reads
+      less than one 32-byte sector;
+    - as many segments as PLAN_THREADS threads a CTA allow, but no more
+      than S needs. Each thread keeps 2 * ROWS loads in flight; on an
+      H100 (``scripts/torch_rglru_plan_sweep.py``) 192 threads were the
+      fastest at the hybrid's prompt (6 segments of 32 columns) and at
+      B 1, S 8192 (12 of 16), against 128 and 256.
+    """
+    esz = torch.empty((), dtype=dtype).element_size()
+    widths = [tw for tw in TILE_WIDTHS if tw * esz >= SECTOR]
+    tw = next((t for t in widths if B * -(-W // t) >= sms), widths[-1])
+    nseg = min(PLAN_THREADS // tw, -(-S // ROWS))
+    return plan_for(B, S, W, tw, nseg)
 
 
 def _check(a, b, h0) -> None:
@@ -47,11 +103,18 @@ def _check(a, b, h0) -> None:
                         f"of one type; got {a.dtype}, {b.dtype}")
     if a.device != b.device:
         raise ValueError("rglru_scan kernel: a and b on different devices")
+    B, S, W = a.shape
+    if min(B, S, W) < 1 or max(B, S, W) > INT_MAX or (
+            B * -(-W // TILE_WIDTHS[-1]) > INT_MAX):
+        raise ValueError(f"rglru_scan kernel: [B, S, W] {tuple(a.shape)} "
+                         f"must be non-empty, with B * ceil(W / "
+                         f"{TILE_WIDTHS[-1]}) CTAs and each dim at most "
+                         f"{INT_MAX}")
     if h0 is not None:
         if h0.device != a.device or h0.dtype != torch.float32:
             raise ValueError(f"rglru_scan kernel: h0 must be float32 on "
                              f"{a.device}; got {h0.dtype} on {h0.device}")
-        if tuple(h0.shape) != (a.shape[0], a.shape[2]):
+        if tuple(h0.shape) != (B, W):
             raise ValueError(f"rglru_scan kernel: h0 {tuple(h0.shape)} is "
                              f"not [B, W] of a {tuple(a.shape)}")
 
@@ -61,6 +124,7 @@ def rglru_scan_kernel(a, b, h0=None):
     Returns h [B, S, W] in a's dtype, every prefix of the recurrence."""
     _check(a, b, h0)
     B, S, W = a.shape
+    plan = scan_plan(B, S, W, a.dtype, _layout.sm_count(a.device.index or 0))
     h = torch.empty_like(a)
     lib = library()
     with torch.cuda.device(a.device):
@@ -68,7 +132,7 @@ def rglru_scan_kernel(a, b, h0=None):
         err = lib.rglru_scan_fwd(
             a.data_ptr(), b.data_ptr(),
             None if h0 is None else h0.data_ptr(), h.data_ptr(),
-            DTYPES[a.dtype], B, S, W, stream)
+            DTYPES[a.dtype], B, S, W, plan.tw, plan.nseg, stream)
     if err != 0:
         msg = lib.rglru_scan_error_string(err).decode()
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "

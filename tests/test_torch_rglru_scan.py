@@ -15,7 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.rglru_scan import ops  # noqa: E402
+from repro_torch.kernels.rglru_scan import kernel, ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.kernel import (  # noqa: E402
     rglru_scan_kernel,
 )
@@ -29,6 +29,14 @@ SERVING_CASE = (4, 48, 4096)
 PREFILL_CASE = (2, 2100, 4096)
 # S and W that are no multiple of the kernel's unroll depth or CTA width
 RAGGED_CASE = (3, 37, 200)
+# B 1 at a long prompt: the shape a grid of 32-column tiles underfills
+LONG_CASE = (1, 8192, 4096)
+# the kernel's edges: S = 1; S one short of and one past a block (the
+# prompt's plan, 96-row blocks) and of two; W no multiple of the tile
+# (32 columns at 4100, 16 at 1001)
+EDGE_CASES = [(4, 1, 4096), (2, 95, 4096), (2, 97, 4096), (2, 191, 4096),
+              (2, 193, 4096), (2, 300, 4100), (3, 129, 1001)]
+H100_SMS = 132
 TOL = 1e-4
 
 
@@ -136,10 +144,157 @@ def test_kernel_refuses_cpu_tensors():
         rglru_scan_kernel(a, b, h0)
 
 
+# ------------------------------------------------- the kernel's plan (CPU)
+PLAN_SHAPES = ([SERVING_CASE, PREFILL_CASE, LONG_CASE, RAGGED_CASE]
+               + EDGE_CASES + RGLRU_CASES + [(1, 1, 1), (5, 3, 33)])
+PLAN_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _covered(plan, B, W):
+    """How often the launch's CTAs touch each (b, w) column: CTA i takes
+    batch row i // tiles and columns of tile i % tiles below W."""
+    seen = np.zeros((B, W), np.int64)
+    for cta in range(plan.ctas):
+        bi, tile = divmod(cta, plan.tiles)
+        seen[bi, tile * plan.tw:min(W, (tile + 1) * plan.tw)] += 1
+    return seen
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
+@pytest.mark.parametrize("case", PLAN_SHAPES, ids=str)
+def test_scan_plan_covers_every_column_once(case, dtype):
+    B, S, W = case
+    plan = kernel.scan_plan(B, S, W, dtype, H100_SMS)
+    assert plan.ctas == B * plan.tiles and plan.tiles * plan.tw >= W
+    assert (plan.tiles - 1) * plan.tw < W
+    assert (_covered(plan, B, W) == 1).all()
+    # every row in exactly one block: the last block holds row S - 1
+    assert (plan.blocks - 1) * plan.block_rows < S <= (
+        plan.blocks * plan.block_rows)
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
+@pytest.mark.parametrize("case", PLAN_SHAPES, ids=str)
+def test_scan_plan_within_the_instance_limits(case, dtype):
+    B, S, W = case
+    plan = kernel.scan_plan(B, S, W, dtype, H100_SMS)
+    esz = torch.empty((), dtype=dtype).element_size()
+    assert plan.tw in kernel.TILE_WIDTHS and plan.tw * esz >= kernel.SECTOR
+    assert 1 <= plan.nseg <= -(-S // kernel.ROWS)
+    assert plan.threads == plan.tw * plan.nseg <= kernel.MAX_THREADS
+    assert plan.block_rows == plan.nseg * kernel.ROWS
+    assert plan == kernel.plan_for(B, S, W, plan.tw, plan.nseg)
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
+@pytest.mark.parametrize("case", [PREFILL_CASE, LONG_CASE, SERVING_CASE],
+                         ids=str)
+def test_scan_plan_fills_a_wave(case, dtype):
+    """Every SM of an H100 gets a CTA, B = 1 included; where S is long
+    enough, a CTA takes as many segments as the plan's caps allow."""
+    plan = kernel.scan_plan(*case, dtype, H100_SMS)
+    assert plan.ctas >= H100_SMS
+    if case[1] >= kernel.PLAN_THREADS // plan.tw * kernel.ROWS:
+        assert plan.threads == kernel.PLAN_THREADS
+
+
+def test_scan_plan_at_the_path_shapes():
+    """The plans chip_smoke.py prints: serving one block of 3 segments,
+    the prompt 22 blocks of 96 rows, B 1 on 16-column tiles."""
+    f32 = torch.float32
+    got = {case: kernel.scan_plan(*case, f32, H100_SMS)[:2] for case in
+           (SERVING_CASE, PREFILL_CASE, LONG_CASE)}
+    assert got == {SERVING_CASE: (32, 3), PREFILL_CASE: (32, 6),
+                   LONG_CASE: (16, 12)}
+    assert kernel.scan_plan(*PREFILL_CASE, f32, H100_SMS).blocks == 22
+    assert kernel.scan_plan(*PREFILL_CASE, torch.bfloat16,
+                            H100_SMS)[:2] == (32, 6)
+    # the edge cases sit one row around a block and two of the prompt's
+    for S, edge in ((95, -1), (97, 1), (191, -1), (193, 1)):
+        plan = kernel.scan_plan(2, S, 4096, f32, H100_SMS)
+        assert plan.block_rows == 96 and (S - edge) % 96 == 0
+
+
+def _fma(x, y, z):
+    """fmaf: the exact product (float64 holds it) plus z, one rounding
+    to float32 (double rounding of the sum aside)."""
+    return (x.astype(np.float64) * y + z).astype(np.float32)
+
+
+def _emulate_kernel(a, b, h0, plan):
+    """The kernel's order of operations in numpy float32, CTA by CTA:
+    rows past S padded with a = 1, b = 0; per segment of ROWS rows a
+    local scan from zero giving (A = prod a, H = h_end); the (A, H) chain
+    over the segments of each block and across blocks, from h0, giving
+    each segment's carry-in; the re-walk from it. Columns past W are not
+    touched, and every column is written by exactly one CTA."""
+    B, S, W = a.shape
+    R, L = kernel.ROWS, plan.block_rows
+    out = np.full(a.shape, np.nan, np.float32)
+    pad = plan.blocks * L - S
+    for cta in range(plan.ctas):
+        bi, tile = divmod(cta, plan.tiles)
+        cols = np.arange(tile * plan.tw, min(W, (tile + 1) * plan.tw))
+        if cols.size == 0:
+            continue
+        n = cols.size
+        ac = np.concatenate([a[bi][:, cols], np.ones((pad, n), np.float32)])
+        bc = np.concatenate([b[bi][:, cols], np.zeros((pad, n), np.float32)])
+        ac = ac.reshape(plan.blocks, plan.nseg, R, n)
+        bc = bc.reshape(plan.blocks, plan.nseg, R, n)
+        A = np.ones((plan.blocks, plan.nseg, n), np.float32)
+        H = np.zeros_like(A)
+        for r in range(R):
+            A = A * ac[:, :, r]
+            H = _fma(ac[:, :, r], H, bc[:, :, r])
+        carry = (np.zeros(n, np.float32) if h0 is None
+                 else h0[bi, cols].astype(np.float32))
+        c_in = np.empty_like(A)
+        for k in range(plan.blocks):
+            for j in range(plan.nseg):
+                c_in[k, j] = carry
+                carry = _fma(A[k, j], carry, H[k, j])
+        h, hs = c_in, np.empty_like(ac)
+        for r in range(R):
+            h = _fma(ac[:, :, r], h, bc[:, :, r])
+            hs[:, :, r] = h
+        out[bi][:, cols] = hs.reshape(plan.blocks * L, n)[:S]
+    return out
+
+
+def _emulation_cases():
+    """(case, plan): S 2100 at narrow W under its own plan and under the
+    prompt's; the ragged case; S one around one and two blocks of several
+    plans (W 40: the 32-column tile is ragged)."""
+    cases = [((2, 2100, 40), None), ((2, 2100, 40), (32, 8)),
+             (RAGGED_CASE, None)]
+    for tw, nseg in ((32, 6), (16, 12), (8, 24), (32, 8), (16, 16),
+                     (32, 3)):
+        L = nseg * kernel.ROWS
+        cases += [((2, S, 40), (tw, nseg))
+                  for S in (L - 1, L + 1, 2 * L - 1, 2 * L + 1)]
+    return cases
+
+
+@pytest.mark.parametrize("case,forced", _emulation_cases(), ids=str)
+def test_kernel_order_matches_jax_oracle(case, forced, jax_rglru):
+    import jax.numpy as jnp
+    _, jref = jax_rglru
+    B, S, W = case
+    plan = (kernel.scan_plan(B, S, W, torch.float32, H100_SMS)
+            if forced is None else kernel.plan_for(B, S, W, *forced))
+    a, b, h0 = _numpy_inputs(case)
+    out = _emulate_kernel(a, b, h0, plan)
+    want = jref(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0))
+    assert not np.isnan(out).any()
+    assert _max_err(torch.from_numpy(out), want) < TOL
+
+
 # ------------------------------------------------------- kernel (CUDA card)
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "case", RGLRU_CASES + [SERVING_CASE, PREFILL_CASE, RAGGED_CASE], ids=str)
+    "case", RGLRU_CASES + [SERVING_CASE, PREFILL_CASE, RAGGED_CASE]
+    + EDGE_CASES + [LONG_CASE], ids=str)
 @pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "zeros"])
 def test_kernel_matches_ref_on_card(case, with_h0, cuda):
     a, b, h0 = (torch.from_numpy(x).to(cuda) for x in _numpy_inputs(case))
@@ -157,6 +312,21 @@ def test_kernel_matches_ref_on_card(case, with_h0, cuda):
 def test_kernel_bf16_on_card(cuda):
     a, b, h0 = (torch.from_numpy(x).to(cuda) for x in
                 _numpy_inputs(SERVING_CASE))
+    out = ops.rglru_scan(a.bfloat16(), b.bfloat16(), h0)
+    want = rglru_scan_ref(a.bfloat16(), b.bfloat16(), h0)
+    assert out.dtype == torch.bfloat16
+    assert float((out.float() - want.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [PREFILL_CASE, (2, 129, 4100)], ids=str)
+@pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "zeros"])
+def test_kernel_bf16_prompt_on_card(case, with_h0, cuda):
+    """bf16 over many blocks: the carry into the next segment and block
+    is the fp32 state, so the prefixes stay one bf16 rounding of the
+    plain version's."""
+    a, b, h0 = (torch.from_numpy(x).to(cuda) for x in _numpy_inputs(case))
+    h0 = h0 if with_h0 else None
     out = ops.rglru_scan(a.bfloat16(), b.bfloat16(), h0)
     want = rglru_scan_ref(a.bfloat16(), b.bfloat16(), h0)
     assert out.dtype == torch.bfloat16

@@ -30,22 +30,28 @@ Phases, each of which exits non-zero on failure:
    there is one (a yardstick only), beside the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak rate of
    the input type, whichever is larger);
-4. model: full-width, full-depth qwen3-4b, stablelm-1.6b and
-   recurrentgemma-9b (random bf16 weights from a seed) give finite
-   logits of the right shape, and one layer of each dense model and one
-   rec and one attn block of the hybrid agree with the same block run on
-   the plain versions;
+4. model: full-width, full-depth qwen3-4b, stablelm-1.6b,
+   recurrentgemma-9b, granite-20b and mamba2-2.7b (random bf16 weights
+   from a seed) give finite logits of the right shape; one layer of each
+   dense model and one rec and one attn block of the hybrid agree with
+   the same block run on the plain versions; mamba2, which runs no
+   kernel, is held to itself in its two forms: each layer's chunked scan
+   over S tokens against the recurrent decode of the last token from the
+   cache of the first S - 1 (the whole model's last-position logits from
+   prefill + ``decode_step`` are reported beside ``forward``'s);
 5. generate: prefill then 16 ``decode_step``s of full-width qwen3-4b
-   (B2, prompt 1024) and recurrentgemma-9b (B2, prompt 2100, past its
-   2048 window, so the cache is a wrapped ring); logits at every step
+   (B2, prompt 1024), recurrentgemma-9b (B2, prompt 2100, past its 2048
+   window, so the cache is a wrapped ring) and mamba2-2.7b (B2, prompt
+   2048, a multiple of its 256-token SSD chunk); logits at every step
    against the same run on the plain versions, the decode kernel's
-   launches = steps x attention layers, flash's = attention layers, the
-   time of ``api.prefill`` (host clock around a synchronised call, median
-   of 3) and the time per decode step;
-6. serving: ``serve_pair`` hosts qwen3-4b (Q0) with stablelm-1.6b, then
-   with recurrentgemma-9b (pair E), at full size under FIKIT and under
-   SHARING; every kernel's launch counter is set to 0 before each run
-   and read after it, and must show every call of the run;
+   launches = steps x attention layers, flash's = attention layers (0
+   for mamba2), the time of ``api.prefill`` (host clock around a
+   synchronised call, median of 3) and the time per decode step;
+6. serving: ``serve_pair`` hosts qwen3-4b (Q0) with stablelm-1.6b, with
+   recurrentgemma-9b (pair E of the paper's Fig 16), with mamba2-2.7b
+   (pair A) and with granite-20b (pair B), at full size under FIKIT and
+   under SHARING; every kernel's launch counter is set to 0 before each
+   run and read after it, and must show every call of the run;
 7. profile: the measurement phase's SK/SG per segment of each service at
    full size, beside one layer's (or block's) device time.
 
@@ -85,10 +91,13 @@ PLAN_SHOWN = ("splits", "split_len", "tw", "nseg", "threads", "blocks",
               "ctas", "stages", "smem_bytes", "partial_bytes")
 RGLRU_TOL = 1e-4
 HI, LO, HYB = "qwen3-4b", "stablelm-1.6b", "recurrentgemma-9b"
+SSM_LO, GRANITE = "mamba2-2.7b", "granite-20b"    # pairs A and B
+LOW_SERVICES = (LO, HYB, SSM_LO, GRANITE)
 REQUESTS, MEASURE_RUNS = 4, 3
 GEN_STEPS = 16
-# the generate phase's (model, batch, prompt): past the hybrid's 2048 window
-GENERATE = ((HYB, 2, 2100), (HI, 2, 1024))
+# the generate phase's (model, batch, prompt): past the hybrid's 2048
+# window; mamba2's prompt a multiple of its 256-token SSD chunk
+GENERATE = ((HYB, 2, 2100), (HI, 2, 1024), (SSM_LO, 2, 2048))
 KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
 
 # flash_attention: B, H, Kh, Sq, Sk, D, kwargs
@@ -102,6 +111,7 @@ TEST_CASES = [                        # tests/test_kernels.py's shapes
 HI_SHAPE = (2, 32, 8, 48, 48, 128, {})      # qwen3-4b at batch 2, seq 48
 LO_SHAPE = (4, 32, 32, 48, 48, 64, {})      # stablelm-1.6b at batch 4
 HYB_SHAPE = (4, 16, 1, 48, 48, 256, dict(window=2048))   # hybrid serving
+GRANITE_SHAPE = (4, 48, 1, 48, 48, 128, {})  # granite-20b: MQA, G 48
 HYB_PROMPT = (2, 16, 1, 2100, 2100, 256, dict(window=2048))
 HI_PROMPT = (2, 32, 8, 1024, 1024, 128, {})  # qwen3-4b prefill, prompt 1024
 RAGGED = (2, 4, 2, 48, 48, 64, dict(window=16))
@@ -529,11 +539,62 @@ def close_enough(label, y, y_ref, rel=2e-2):
     return diff, scale
 
 
+def ssm_forms_check(torch, model, tokens, logits, cfg):
+    """mamba2 runs no kernel, so its check holds its two forms to each
+    other, layer by layer down the whole depth: on the forward's input to
+    layer i, the chunked scan over S tokens against the recurrent decode
+    of the last token from the cache of the first S - 1 (each held within
+    ``close_enough``). Beside it, the two paths run apart, as prefill of
+    S - 1 tokens + one ``decode_step`` does: their last rows' difference
+    after each layer, and the whole model's last-position logits against
+    ``forward``'s, reported, not held. The random-weight model is not
+    chaotic: each layer's two forms agree within 0.5 % from the same
+    input, and the two paths drift apart steadily as their bf16
+    roundings add up, about as the square root of depth (0.2 % of the
+    output's size after one layer, 2.3 % after 16, 4.8 % after 64), to
+    5.7 % of max|logit|: past 2e-2 by accumulation, not by divergence."""
+    from repro_torch.models import api, mamba2, transformer as tfm
+
+    def rel(a, b):
+        return (float((a.float() - b.float()).abs().max())
+                / float(b.float().abs().max()))
+    x = tfm.embed_tokens(model, tokens, cfg)
+    head, last = x[:, :-1], x[:, -1:]          # the prefill + decode path
+    local, apart = [], []
+    for i, lp in enumerate(model.layers):
+        full = mamba2.layer_apply(lp, x, cfg)
+        _, cache = mamba2.layer_apply(lp, x[:, :-1], cfg, return_cache=True)
+        step, _ = mamba2.layer_decode(lp, x[:, -1:], cache, cfg)
+        close_enough(f"{cfg.name} layer {i}: recurrent vs chunked", step,
+                     full[:, -1:])
+        local.append(rel(step, full[:, -1:]))
+        head, cache = mamba2.layer_apply(lp, head, cfg, return_cache=True)
+        last, _ = mamba2.layer_decode(lp, last, cache, cfg)
+        apart.append(rel(last, full[:, -1:]))
+        x = full
+    S = tokens.shape[1]
+    _, caches = api.prefill(model, tokens[:, :-1], cfg)
+    step, _ = api.decode_step(model, tokens[:, -1:], S - 1, caches, cfg)
+    want = logits[:, -1:]
+    ldiff = float((step.float() - want.float()).abs().max())
+    lscale = float(want.float().abs().max())
+    L = cfg.num_layers
+    depths = sorted({d for d in (1, 2, 4, 8, 16, 32) if d < L} | {L})
+    return (f"every layer max|recurrent - chunked| / max|out| <= "
+            f"{max(local):.4g} (held; layer 0 {local[0]:.4g}); the two "
+            f"paths' last rows apart after layers "
+            + ", ".join(f"{d}: {apart[d - 1]:.3g}" for d in depths)
+            + f"; last-position logits max|prefill + decode_step - "
+            f"forward| {ldiff:.4g} of max|logit| {lscale:.4g} (reported)")
+
+
 def model_check(torch, K, name, batch, seq, keep=False):
     """Full-size model: finite logits of the right shape, and its first
-    block of each kind with the kernels against the plain versions."""
+    block of each kind with the kernels against the plain versions (for
+    mamba2, its chunked form against its recurrent one)."""
     from repro_torch.config import get_config
-    from repro_torch.models import api, rglru, transformer as tfm
+    from repro_torch.models import api, rglru, segmentation
+    from repro_torch.models import transformer as tfm
     cfg = get_config(name)
     t0 = time.perf_counter()
     model = api.build_params(cfg, seed=0, device="cuda")
@@ -552,10 +613,12 @@ def model_check(torch, K, name, batch, seq, keep=False):
                        rglru.rec_block_apply if kind == "rec"
                        else rglru.attn_block_apply)
                       for kind in ("rec", "attn")]
+        elif cfg.family == "ssm":
+            blocks = []
+            notes.append(ssm_forms_check(torch, model, tokens, logits, cfg))
         else:
             blocks = [("layer 0", model.layers[0],
-                       lambda lp, x, cfg: tfm.layer_apply(
-                           lp, x, tfm.positions_for(x), cfg))]
+                       segmentation.layer_fn(cfg))]
         for label, block, fn in blocks:
             y = fn(block, x, cfg)
             with plain_versions(K):
@@ -639,8 +702,10 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits):
         ref_outs, _, _ = run()
     with checked_calls(K) as checked:
         run()
-    attn_layers = (cfg.num_layers if cfg.family == "dense" else
-                   rglru.block_kinds(cfg).count("attn"))
+    if cfg.family == "hybrid":
+        attn_layers = rglru.block_kinds(cfg).count("attn")
+    else:                                # dense: every layer; SSM: none
+        attn_layers = cfg.num_layers if cfg.family == "dense" else 0
     need = {"decode_attention": GEN_STEPS * attn_layers,
             "flash_attention": attn_layers}
     if cfg.family == "hybrid":
@@ -660,9 +725,14 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits):
                    / float(r.float().abs().max()))
     agree = sum(int((o.argmax(-1) == r.argmax(-1)).all())
                 for o, r in zip(outs, ref_outs))
-    C = next(c for c in caches if hasattr(c, "pos")).capacity
+    kv = [c for c in caches if hasattr(c, "pos")]
+    if kv:
+        size = {"cache_slots": kv[0].capacity}
+    else:                        # SSM: a fixed-size state and conv buffers
+        size = {"state_bytes": sum(t.numel() * t.element_size()
+                                   for c in caches for t in c)}
     rec = {"model": name, "batch": batch, "prompt": prompt,
-           "steps": GEN_STEPS, "cache_slots": C, "launches": launches,
+           "steps": GEN_STEPS, **size, "launches": launches,
            "prefill_ms_median": statistics.median(prefill),
            "prefill_ms": prefill,
            "decode_step_ms_median": statistics.median(times),
@@ -698,6 +768,8 @@ def serve_run(torch, K, low, mode):
     if lcfg.family == "hybrid":
         lo_attn = rglru.block_kinds(lcfg).count("attn")
         need["rglru_scan"] = (lcfg.num_layers - lo_attn) * runs
+    elif lcfg.family == "ssm":               # no attention, no kernel
+        lo_attn = 0
     need["flash_attention"] = (get_config(HI).num_layers + lo_attn) * runs
     rec = dict(out, low=low, launches=launches, peak_mem_bytes=peak,
                wall_s=wall)
@@ -718,7 +790,8 @@ def segment_profile(torch, low):
     of each kind) alone."""
     from repro_torch.config import get_config
     from repro_torch.core.policy import Mode
-    from repro_torch.models import rglru, transformer as tfm
+    from repro_torch.models import rglru, segmentation
+    from repro_torch.models import transformer as tfm
     from repro_torch.serving import InferenceService, ServingSystem
     hi = InferenceService(get_config(HI), priority=0, batch=2, seq=48,
                           host_gap=0.002)
@@ -737,9 +810,8 @@ def segment_profile(torch, low):
                     "attn": lambda: rglru.attn_block_apply(
                         model.blocks[kinds.index("attn")], x, cfg)}
             else:
-                pos = tfm.positions_for(x)
-                blocks = {"layer": lambda: tfm.layer_apply(
-                    model.layers[0], x, pos, cfg)}
+                fn = segmentation.layer_fn(cfg)
+                blocks = {"layer": lambda: fn(model.layers[0], x, cfg)}
             # a block is ~100 launches: 4 of them stay inside the card's
             # launch queue, so the host never blocks behind the sleep
             with torch.inference_mode():
@@ -882,13 +954,14 @@ def main() -> int:
     log("[kernels] flash_attention vs its plain version")
     fl = {}
     for case in TEST_CASES + EDGE_CASES + [HI_SHAPE, LO_SHAPE, HYB_SHAPE,
-                                           RAGGED, ALL_MASKED]:
+                                           GRANITE_SHAPE, RAGGED,
+                                           ALL_MASKED]:
         for dtype in (f32, bf16):
             seed += 1
             fl[(case[:6], dtype)] = check_flash_case(torch, K, case, dtype,
                                                      seed)
     # the paths' own layout: attend's transposed [B, S, H, D] views
-    for case in (HI_SHAPE, LO_SHAPE, HYB_SHAPE):
+    for case in (HI_SHAPE, LO_SHAPE, HYB_SHAPE, GRANITE_SHAPE):
         for dtype in (f32, bf16):
             seed += 1
             fl[("path", case[:6], dtype)] = check_flash_case(
@@ -937,6 +1010,10 @@ def main() -> int:
     free(torch)
     model_check(torch, K, LO, 4, 48)
     free(torch)
+    model_check(torch, K, GRANITE, 4, 48)
+    free(torch)
+    ssm_model = model_check(torch, K, SSM_LO, 4, 48, keep=True)
+    free(torch)
     hyb_model = model_check(torch, K, HYB, 4, 48, keep=True)
     free(torch)
 
@@ -948,7 +1025,8 @@ def main() -> int:
     # so a one-ulp bf16 difference in any block can flip a row's argmax key
     # and the two runs drift apart with depth and length, while each
     # kernel call stays within one ulp of its plain version (held below)
-    (_, hyb_batch, hyb_prompt), (_, hi_batch, hi_prompt) = GENERATE
+    ((_, hyb_batch, hyb_prompt), (_, hi_batch, hi_prompt),
+     (_, ssm_batch, ssm_prompt)) = GENERATE
     gen_hyb = generate_check(torch, K, HYB, hyb_model, hyb_batch, hyb_prompt,
                              hold_logits=False)
     del hyb_model
@@ -956,9 +1034,15 @@ def main() -> int:
     gen_hi = generate_check(torch, K, HI, None, hi_batch, hi_prompt,
                             hold_logits=True)
     free(torch)
+    # no kernel on mamba2's path: its three runs are one function, and its
+    # attention kernels' launches must be 0
+    generate_check(torch, K, SSM_LO, ssm_model, ssm_batch, ssm_prompt,
+                   hold_logits=True)
+    del ssm_model
+    free(torch)
 
     served = {}
-    for low in (LO, HYB):
+    for low in LOW_SERVICES:
         log(f"[serve] serve_pair({HI!r}, {low!r}, reduced=False, "
             f"requests={REQUESTS}, measure_runs={MEASURE_RUNS})")
         fikit = serve_run(torch, K, low, "fikit")
@@ -970,7 +1054,7 @@ def main() -> int:
             f"FIKIT {fikit['low_jct_ms']:.3f} ms vs SHARING "
             f"{sharing['low_jct_ms']:.3f} ms; fills {fikit['fills']}")
 
-    for low in (LO, HYB):
+    for low in LOW_SERVICES:
         log(f"[profile] {HI} + {low}, measurement phase: SK/SG per "
             f"segment, one block's device time")
         segment_profile(torch, low)

@@ -11,9 +11,10 @@ Each is measured in its own process, in the order given, so that two
 versions are compared on one card in turns (parent, change, change,
 parent). Per tree it prints one JSON line: the median of 3 prefills
 (after a warm-up; host clock around a synchronised call) of full-width
-qwen3-4b (B2, prompt 1024) and recurrentgemma-9b (B2, prompt 2100), random
-bf16 weights from seed 0, and the median of the 16 decode steps after a
-prefill; the flash kernel's median device time (ms) on bf16 transposed
+qwen3-4b (B2, prompt 1024), recurrentgemma-9b (B2, prompt 2100) and
+mamba2-2.7b (B2, prompt 2048), random bf16 weights from seed 0, and the
+median of the 16 decode steps after a prefill (``chip_smoke.GENERATE``
+of this checkout); the flash kernel's median device time (ms) on bf16 transposed
 [B, S, H, D] views, as ``attend`` hands them over; and the decode
 kernel's at ``DEC_HI``, ``DEC_HYB`` and ``DEC_LONG`` on bf16 transposed
 views of the model's [B, C, Kh, D] cache, as ``decode_attend`` hands
@@ -66,7 +67,9 @@ def measure(root: str) -> dict:
         del model
         torch.cuda.empty_cache()
     shapes = {"qwen3_serving": cs.HI_SHAPE, "stablelm_serving": cs.LO_SHAPE,
-              "hybrid_serving": cs.HYB_SHAPE, "qwen3_prompt": cs.HI_PROMPT,
+              "hybrid_serving": cs.HYB_SHAPE,
+              "granite_serving": cs.GRANITE_SHAPE,
+              "qwen3_prompt": cs.HI_PROMPT,
               "hybrid_prompt": cs.HYB_PROMPT, "long": cs.LONG}
     for label, (B, H, Kh, Sq, Sk, D, kw) in shapes.items():
         g = torch.Generator(device="cuda").manual_seed(0)

@@ -4,7 +4,8 @@ nested dicts of numpy arrays, becomes the port's state dict.
 The caller converts the JAX arrays (``jax.tree.map(np.asarray, params)``);
 this module imports no JAX. Dtypes and shapes are kept: a bfloat16 array
 (numpy's ml_dtypes extension type) is reinterpreted bit for bit. The
-stacked ``layers`` subtree ([L, ...] leaves) is split into ``layers.<i>``;
+stacked ``layers`` subtree ([L, ...] leaves: the dense decoder's and the
+mamba2 SSM's) is split into ``layers.<i>``;
 a list of per-block subtrees (the hybrid's ``blocks``) becomes
 ``blocks.<i>``.
 """
@@ -25,7 +26,7 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     """Flatten the JAX tree to state-dict keys of the port's model
-    (``Transformer`` or ``Hybrid``)."""
+    (``Transformer``, ``Mamba2`` or ``Hybrid``)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node) -> None:

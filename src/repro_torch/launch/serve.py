@@ -3,13 +3,18 @@ engine with batched requests — the end-to-end serving path of the port
 (``repro.launch.serve``'s flat ``submit`` form).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
-        --high qwen3-4b --low stablelm-1.6b --mode fikit --requests 8
+        --high qwen3-4b --low mamba2-2.7b --mode fikit --requests 8
 
-Any ported config can take either role: the dense qwen3-4b and
-stablelm-1.6b, or the recurrentgemma-9b hybrid, served as ``rec`` and
-``attn`` block segments (``--low recurrentgemma-9b`` is pair E of the
-paper's Fig 16). ``--full`` runs the published widths and depths (random
-weights); without it the services run at ``.reduced()`` scale.
+Any ported config can take either role: the dense qwen3-4b,
+stablelm-1.6b and granite-20b, the mamba2-2.7b SSM, or the
+recurrentgemma-9b hybrid, served as ``rec`` and ``attn`` block segments.
+The default pair, qwen3-4b over mamba2-2.7b, is pair A of the paper's
+Fig 16; ``--low granite-20b`` is pair B and ``--low recurrentgemma-9b``
+pair E. ``--full`` runs the published widths and depths (random
+weights); without it the services run at ``.reduced()`` scale, where
+mamba2's SSD chunk (32) must divide the sequence length (48 here, as in
+the JAX package, so the reduced default pair stops there: pass another
+``--low``).
 ``--device`` picks the torch device (default ``cuda``; there is no
 fallback to the CPU). The durable ops-plane verbs, ``--resume`` and the
 ``load`` verb come in a later slice.
@@ -101,7 +106,7 @@ def serve_pair(high: str, low: str, mode: str = "fikit", requests: int = 8,
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--high", default="qwen3-4b")
-    ap.add_argument("--low", default="stablelm-1.6b")
+    ap.add_argument("--low", default="mamba2-2.7b")
     ap.add_argument("--mode", default="fikit",
                     choices=[m.value for m in Mode])
     ap.add_argument("--requests", type=int, default=8)

@@ -1,5 +1,6 @@
 """Uniform model API (``repro.models.api``) for the families this package
-runs so far: the dense decoder and the recurrentgemma hybrid.
+runs so far: the dense decoder, the mamba2 SSM and the recurrentgemma
+hybrid.
 
     model = build_params(cfg, seed, device)   # nn.Module, random weights
     logits, aux = forward(model, batch, cfg)
@@ -8,9 +9,10 @@ runs so far: the dense decoder and the recurrentgemma hybrid.
     caches = init_decode_caches(cfg, batch, seq_len, device)
     batch = make_batch(cfg, batch, seq_len, generator, device)
 
-Caches are one entry per layer (the JAX package stacks the dense model's
-over layers), and ``decode_step`` updates KV caches in place; ``pos`` is a
-host int, so no layer reads a position back from the card.
+Caches are one entry per layer (the JAX package stacks the dense and SSM
+models' over layers), and ``decode_step`` updates KV caches in place;
+``pos`` is a host int, so no layer reads a position back from the card
+(the SSM state is position-free and ignores it).
 """
 from __future__ import annotations
 
@@ -19,11 +21,10 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.config import DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig
-from repro_torch.models import rglru, transformer
+from repro_torch.models import mamba2, rglru, transformer
 
 #: the slice of the port that brings each family still missing
 _LATER = {
-    SSM: "the mamba2 slice (chunked SSD scan)",
     MOE: "the MoE/MLA slice",
     ENCDEC: "the encoder-decoder slice",
     VLM: "the VLM slice",
@@ -33,6 +34,8 @@ _LATER = {
 def _mod(cfg: ModelConfig):
     if cfg.family == DENSE:
         return transformer
+    if cfg.family == SSM:
+        return mamba2
     if cfg.family == HYBRID:
         return rglru
     raise NotImplementedError(

@@ -3,7 +3,8 @@
 
 A service's inference = [embed] + [layer]*L + [head]. The layer segment is
 ONE callable reused for every layer (the layer's module is bound per
-segment), so all L dispatches share a KernelID, as in the paper's Fig 5.
+segment), so all L dispatches share a KernelID, as in the paper's Fig 5:
+a dense decoder layer, or a mamba2 SSD mixer layer for the SSM family.
 The hybrid (recurrentgemma) has one ``rec`` and one ``attn`` segment kind
 instead of ``layer``, in its block pattern's order.
 
@@ -22,9 +23,9 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch.config import HYBRID, ModelConfig
+from repro_torch.config import HYBRID, SSM, ModelConfig
 from repro_torch.core.client import Segment
-from repro_torch.models import api, rglru
+from repro_torch.models import api, mamba2, rglru
 from repro_torch.models import transformer as tfm
 
 
@@ -32,6 +33,18 @@ def _sync(x: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
     return x
+
+
+def _dense_layer(lp: tfm.DecoderLayer, x, cfg: ModelConfig):
+    return tfm.layer_apply(lp, x, tfm.positions_for(x), cfg,
+                           window=cfg.sliding_window,
+                           chunk=cfg.attention_chunk)
+
+
+def layer_fn(cfg: ModelConfig) -> Callable:
+    """The forward pass of one layer of a dense or SSM model, as
+    ``fn(layer_module, x, cfg)``."""
+    return mamba2.layer_apply if cfg.family == SSM else _dense_layer
 
 
 def _sleep_work(seconds: float) -> Optional[Callable]:
@@ -52,8 +65,9 @@ class SegmentedService:
     """
 
     def __init__(self, cfg: ModelConfig,
-                 model: Union[tfm.Transformer, rglru.Hybrid], batch: int,
-                 seq: int, host_gap: float = 0.0, tail_gap: float = 0.0):
+                 model: Union[tfm.Transformer, mamba2.Mamba2, rglru.Hybrid],
+                 batch: int, seq: int, host_gap: float = 0.0,
+                 tail_gap: float = 0.0):
         self.cfg = cfg
         self.model = model
         self.device = model.embed.device
@@ -67,7 +81,7 @@ class SegmentedService:
             self._build_decoder_lm()
 
     def _ends(self):
-        """The embed and head segments, shared by the dense and hybrid
+        """The embed and head segments, shared by the decoder-LM and hybrid
         layouts."""
         cfg, model = self.cfg, self.model
 
@@ -87,10 +101,10 @@ class SegmentedService:
         cfg = self.cfg
         embed, head = self._ends()
         segs = [embed]
+        fn = layer_fn(cfg)
         for lp in self.model.layers:
             segs.append(Segment(
-                f"{cfg.name}/layer",
-                partial(self._run_layer, lp, cfg),
+                f"{cfg.name}/layer", partial(self._run_block, fn, lp, cfg),
                 host_work=_sleep_work(self.host_gap)))
         self.segments = segs + [head]
 
@@ -105,13 +119,6 @@ class SegmentedService:
                 f"{cfg.name}/{kind}", partial(self._run_block, fn, lp, cfg),
                 host_work=_sleep_work(self.host_gap)))
         self.segments = segs + [head]
-
-    @staticmethod
-    def _run_layer(lp: tfm.DecoderLayer, cfg: ModelConfig, x):
-        with torch.inference_mode():
-            return _sync(tfm.layer_apply(lp, x, tfm.positions_for(x), cfg,
-                                         window=cfg.sliding_window,
-                                         chunk=cfg.attention_chunk))
 
     @staticmethod
     def _run_block(fn, lp, cfg: ModelConfig, x):

@@ -32,8 +32,8 @@ from repro_torch.models.segmentation import SegmentedService
 
 
 class InferenceService:
-    """One hosted model (a dense decoder or the recurrentgemma hybrid)
-    + its priority + its profile state. The weights are random, drawn on
+    """One hosted model (a dense decoder, the mamba2 SSM or the
+    recurrentgemma hybrid) + its priority + its profile state. The weights are random, drawn on
     ``device`` from ``seed``."""
 
     def __init__(self, cfg: ModelConfig, priority: int, batch: int = 1,

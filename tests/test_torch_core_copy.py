@@ -16,6 +16,7 @@ VERBATIM = [
     "core/placement.py", "core/online.py", "core/executor.py",
     "core/client.py", "config.py", "configs/qwen3_4b.py",
     "configs/stablelm_1_6b.py", "configs/recurrentgemma_9b.py",
+    "configs/mamba2_2_7b.py", "configs/granite_20b.py",
 ]
 
 

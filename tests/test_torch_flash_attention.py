@@ -45,10 +45,12 @@ FLASH_CASES = [
     (1, 2, 2, 128, 512, 64, dict(causal=False)),      # cross-shaped
     (1, 4, 4, 512, 512, 96, dict(window=128)),
 ]
-# the serving shapes: qwen3-4b (hi) and stablelm-1.6b (lo) at seq 48
+# the serving shapes: qwen3-4b (hi) and stablelm-1.6b (lo) at seq 48, and
+# granite-20b (lo of pair B): MQA, 48 query heads on one kv head
 SERVING_CASES = [
     (2, 32, 8, 48, 48, 128, {}),
     (4, 32, 32, 48, 48, 64, {}),
+    (4, 48, 1, 48, 48, 128, {}),
 ]
 # head dim 256: recurrentgemma-9b's MQA attention blocks (H 16, Kh 1,
 # window 2048) at serving (batch 4, seq 48) and a shorter window that
@@ -219,6 +221,7 @@ PATH_WARPGROUPS = [
     ((2, 32, 48), 1),             # qwen3-4b serving: 64 CTAs
     ((4, 32, 48), 1),             # stablelm-1.6b serving: 128 CTAs
     ((4, 16, 48), 1),             # recurrentgemma-9b serving
+    ((4, 48, 48), 2),             # granite-20b serving: 192, rows 64+ idle
     ((2, 32, 1024), 2),           # qwen3-4b prefill: 512 CTAs of 128 rows
     ((2, 16, 2100), 2),           # recurrentgemma-9b prompt: 544
     ((1, 32, 4096), 2),           # long: 1024
@@ -240,8 +243,9 @@ def test_launch_plan_at_path_shapes(args, wg):
 
 # [B, S, heads, D] buffers of the paths, seen as [B, heads, S, D]
 PATH_LAYOUTS = [(2, 48, 32, 128), (2, 48, 8, 128), (4, 48, 32, 64),
-                (4, 48, 16, 256), (4, 48, 1, 256), (2, 2100, 16, 256),
-                (1, 4096, 32, 128), (1, 200, 4, 96)]
+                (4, 48, 16, 256), (4, 48, 1, 256), (4, 48, 48, 128),
+                (4, 48, 1, 128), (2, 2100, 16, 256), (1, 4096, 32, 128),
+                (1, 200, 4, 96)]
 
 
 @pytest.mark.parametrize("shape", PATH_LAYOUTS, ids=str)

@@ -1,6 +1,6 @@
-"""The port's dense decoder and recurrentgemma hybrid against the JAX
-package's, on the CPU: full-sequence logits, and prefill followed by
-one-token decode steps (logits at every step and the final caches).
+"""The port's dense decoder, mamba2 SSM and recurrentgemma hybrid against
+the JAX package's, on the CPU: full-sequence logits, and prefill followed
+by one-token decode steps (logits at every step and the final caches).
 
 Inputs and weights come from numpy / the JAX package's own init and are
 handed to both frameworks (weights through ``repro_torch.bridge``).
@@ -10,7 +10,11 @@ rounding. Layers are held to atol = rtol = 1e-4. Whole-model logits get
 atol 5e-4: the random-init residual stream of reduced stablelm grows to
 ~60, and against a float64 forward of the same weights the JAX logits
 are off by 3.7e-4 and the port's by 1.1e-4 (max |logit| 3.6); qwen3's
-qk-norm keeps both within 3e-6. A convention slip (norm scale, rope
+qk-norm keeps both within 3e-6. Reduced granite's MQA keys are not scaled
+down (fan_in = Kh = 1), so its attention logits are large: against a
+float64 forward its JAX logits are off by 1.1e-3 and the port's by 6.3e-4
+(max |logit| 3.7), and the two frameworks agree within the same atol
+5e-4 + rtol 1e-4. mamba2's logits agree within 1e-5. A convention slip (norm scale, rope
 pairing, GQA head order) moves logits by 1e-2 or more. Decode logits and
 the caches' k/v after prefill + 8 steps are held to the same 5e-4 (the
 caches carry the same residual stream), slot positions exactly.
@@ -141,6 +145,10 @@ MODEL_CASES = {
     # 2 blocks (rec, attn), lru width 256, window 128, MQA head dim 64
     "recurrentgemma-9b": lambda: jconfig.get_config("recurrentgemma-9b")
     .reduced(),
+    # MQA: 4 query heads on one kv head (48 at full width)
+    "granite-20b": lambda: jconfig.get_config("granite-20b").reduced(),
+    # 2 layers, d_inner 512, 16 heads of 32, state 32, SSD chunk 32
+    "mamba2-2.7b": lambda: jconfig.get_config("mamba2-2.7b").reduced(),
 }
 
 
@@ -164,7 +172,10 @@ def _bridged(jcfg, seed=0, **kw):
 def test_logits_match_jax_forward(name):
     jcfg = MODEL_CASES[name]()
     jparams, cfg, model, _ = _bridged(jcfg)
-    tokens = _rng(5).integers(0, cfg.vocab_size, (2, 48), dtype=np.int32)
+    # the SSD chunk (32 at .reduced()) must divide the sequence: 64 = 2
+    # chunks, where 48 trips the assertion in both packages
+    seq = 64 if cfg.family == "ssm" else 48
+    tokens = _rng(5).integers(0, cfg.vocab_size, (2, seq), dtype=np.int32)
     want, _ = japi.forward(jparams, jnp.asarray(tokens), jcfg)
     logits, aux = api.forward(model, torch.from_numpy(tokens), cfg)
     assert tuple(logits.shape) == want.shape
@@ -184,14 +195,17 @@ DECODE_CASES = {
                          dict(attention_chunk=32), 40),
     # past the reduced hybrid's 128-token window
     "recurrentgemma-9b": (MODEL_CASES["recurrentgemma-9b"], {}, 130),
+    "granite-20b": (MODEL_CASES["granite-20b"], {}, 24),
+    # two SSD chunks of 32; decode carries the state and conv buffers
+    "mamba2-2.7b": (MODEL_CASES["mamba2-2.7b"], {}, 64),
 }
 DECODE_STEPS = 8
 
 
 def _flat_caches(cfg, caches, jcaches):
     """(port tensors, JAX arrays) of two caches, field by field: the JAX
-    dense caches are stacked over layers, the port's are a list."""
-    if cfg.family == "dense":
+    dense and SSM caches are stacked over layers, the port's are a list."""
+    if cfg.family in ("dense", "ssm"):
         return [torch.stack(f) for f in zip(*caches)], list(jcaches)
     return ([t for c in caches for t in c], [a for c in jcaches for a in c])
 
@@ -226,9 +240,11 @@ def test_prefill_then_decode_matches_jax(name):
 
 def test_init_decode_caches_match_jax():
     """Empty caches: same shapes, dtypes and empty-slot marks (-1) as the
-    JAX package's, for a ragged seq_len and for the hybrid's window."""
+    JAX package's, for a ragged seq_len, for the hybrid's window and for
+    mamba2's zero state and conv buffers."""
     for jcfg, seq_len in ((MODEL_CASES["qwen3-4b-gqa"](), 40),
-                          (MODEL_CASES["recurrentgemma-9b"](), 300)):
+                          (MODEL_CASES["recurrentgemma-9b"](), 300),
+                          (MODEL_CASES["mamba2-2.7b"](), 300)):
         cfg = _port_cfg(jcfg)
         got, ref = _flat_caches(
             cfg, api.init_decode_caches(cfg, 2, seq_len, device="cpu"),
@@ -270,8 +286,8 @@ def test_segment_chain_equals_forward():
 
 
 def test_other_families_name_their_slice():
-    cfg = get_config("qwen3-4b").reduced().replace(family="ssm")
-    with pytest.raises(NotImplementedError, match="mamba2 slice"):
+    cfg = get_config("qwen3-4b").reduced().replace(family="moe")
+    with pytest.raises(NotImplementedError, match="MoE/MLA slice"):
         api.build_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        api.make_batch(cfg.replace(family="moe"), 1, 8, device="cpu")
+        api.make_batch(cfg.replace(family="encdec"), 1, 8, device="cpu")

@@ -1,8 +1,9 @@
 """End-to-end serving tests of the port on the CPU at reduced scale:
 measurement -> sharing lifecycle (``tests/test_serving_e2e.py``'s cases
-with the port's dense pair qwen3-4b + stablelm-1.6b), pair E (qwen3-4b +
-the recurrentgemma-9b hybrid), KernelID agreement with the JAX package,
-and the rule that the port imports no JAX."""
+with the port's dense pair qwen3-4b + stablelm-1.6b), pair A (qwen3-4b +
+the mamba2-2.7b SSM, the CLI's default pair), pair E (qwen3-4b + the
+recurrentgemma-9b hybrid), KernelID agreement with the JAX package, and
+the rule that the port imports no JAX."""
 import statistics as st
 import subprocess
 import sys
@@ -109,9 +110,37 @@ def test_serve_pair_and_cli_on_cpu(capsys):
     assert out["mode"] == "fikit"
     assert out["high_jct_ms"] > 0 and out["low_jct_ms"] > 0
     assert out["measure_high_ms"] > 0 and out["measure_low_ms"] > 0
-    main(["--mode", "sharing", "--requests", "1", "--device", "cpu"])
+    # the default low service, mamba2-2.7b, needs a seq its reduced SSD
+    # chunk (32) divides; the CLI serves seq 48, as the JAX package's does
+    main(["--mode", "sharing", "--requests", "1", "--device", "cpu",
+          "--low", "stablelm-1.6b"])
     printed = capsys.readouterr().out
     assert "mode: sharing" in printed and "fills: 0" in printed
+
+
+def test_cli_default_pair_is_pair_a(monkeypatch):
+    """With no arguments the CLI serves qwen3-4b over mamba2-2.7b (pair A),
+    as ``repro.launch.serve`` does, at full size only with ``--full``."""
+    from repro_torch.launch import serve
+    calls = []
+    monkeypatch.setattr(serve, "serve_pair",
+                        lambda *a, **kw: calls.append((a, kw)))
+    main([])
+    main(["--full"])
+    (args, kw), (_, full_kw) = calls
+    assert args[:3] == ("qwen3-4b", "mamba2-2.7b", "fikit")
+    assert kw["device"] == "cuda" and kw["reduced"]
+    assert not full_kw["reduced"]
+
+
+def test_serve_pair_a_on_cpu():
+    """Pair A of the paper's Fig 16 (qwen3-4b high, mamba2-2.7b low)
+    serves under FIKIT at reduced scale, at a seq (64) that the reduced
+    SSD chunk divides."""
+    out = serve_pair("qwen3-4b", "mamba2-2.7b", mode="fikit", requests=2,
+                     measure_runs=2, seq=64, device="cpu", verbose=False)
+    assert out["high_jct_ms"] > 0 and out["low_jct_ms"] > 0
+    assert out["measure_low_ms"] > 0
 
 
 def test_cuda_is_the_default_device():
@@ -163,6 +192,28 @@ def test_hybrid_segment_kernel_ids_match_jax():
     _check_kernel_ids_match_jax("recurrentgemma-9b", unique=4)
 
 
+def test_ssm_segment_kernel_ids_match_jax():
+    """mamba2's segments (embed, one layer KernelID for every layer, head)
+    get the JAX package's KernelIDs: fp32 [B, S, D] activations."""
+    _check_kernel_ids_match_jax("mamba2-2.7b", unique=3)
+
+
+def test_ssm_segment_chain_equals_forward():
+    """embed -> SSD layer x L -> head through the service's segments gives
+    mamba2's logits."""
+    cfg = get_config("mamba2-2.7b").reduced()
+    model = api.build_params(cfg, seed=3, device="cpu")
+    svc = SegmentedService(cfg, model, batch=2, seq=64)
+    names = [seg.name.split("/")[1] for seg in svc.segments]
+    assert names == ["embed"] + ["layer"] * cfg.num_layers + ["head"]
+    tokens = svc.make_input()
+    state = tokens
+    for seg in svc.segments:
+        state = seg.fn(state)
+    logits, _ = api.forward(model, tokens, cfg)
+    torch.testing.assert_close(state, logits, rtol=0, atol=0)
+
+
 def test_hybrid_segment_chain_equals_forward():
     """embed -> rec/attn blocks -> head through the service's segments
     gives the hybrid's logits."""
@@ -196,6 +247,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import repro_torch, repro_torch.serving.engine, "
         "repro_torch.launch.serve, repro_torch.bridge, "
         "repro_torch.models.rglru, repro_torch.models.mamba2, "
+        "repro_torch.configs.mamba2_2_7b, repro_torch.configs.granite_20b, "
         "repro_torch.kernels.rglru_scan.ops, "
         "repro_torch.kernels.decode_attention.ops, "
         "repro_torch.kernels.flash_attention.ops\n"

@@ -53,9 +53,24 @@ Phases, each of which exits non-zero on failure:
    under SHARING; every kernel's launch counter is set to 0 before each
    run and read after it, and must show every call of the run;
 7. profile: the measurement phase's SK/SG per segment of each service at
-   full size, beside one layer's (or block's) device time.
+   full size, beside one layer's (or block's) device time;
+8. load: ``serve_load`` of pair A at full size, open-loop Poisson gold
+   (qwen3-4b B1 S32, Q0, a 0.5 s deadline) and diurnal bronze (mamba2-2.7b
+   B2 S32, Q5) through the admission plane, at 0.5x and 2x the capacity
+   the measurement phase gives under FIKIT and at 0.5x under SHARING;
+   per class offered, admitted, completed, rejected, shed, p50/p99 and
+   goodput; fails on a FAILED ticket, a priority inversion, a class that
+   breaks the plane's invariant, or a flash count other than 36 per
+   qwen3 invocation the engine ran (the ``admit`` events count them);
+9. ops: pair A's ``serve_pair`` without and with a jobstore (hi JCT,
+   qwen3's sharing-phase layer SK/SG, each write-ahead record's time);
+   one full-width qwen3-4b service paused and resumed through control
+   rows the poller consumes (tokens equal to an uninterrupted run's) and
+   cancelled mid-flight (its device memory comes back); a RUNNING row
+   recovered to DONE by ``serve_pair(..., resume=True)``; the ``status``
+   verb, run as a subprocess, lists every job DONE or CANCELLED.
 
-Every path (generate, each serving run) is driven with all launch
+Every path (generate, each serving, load and ops run) is driven with all launch
 counters set to 0 just before it and read just after; launches made to
 compare a kernel with its plain version are not counted. The
 second-to-last lines are a JSON object of the kernels and the card's
@@ -99,6 +114,15 @@ GEN_STEPS = 16
 # window; mamba2's prompt a multiple of its 256-token SSD chunk
 GENERATE = ((HYB, 2, 2100), (HI, 2, 1024), (SSM_LO, 2, 2048))
 KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
+# the load phase: serve_load's classes (gold Q0 with a 0.5 s deadline,
+# bronze Q5 with none), 30 % of the offered requests gold, bronze
+# diurnal; (mode, factor of the capacity, seconds of arrivals)
+LOAD_SHARE, LOAD_DEADLINE, LOAD_SEED = 0.3, 0.5, 0
+LOAD_RUNS = (("fikit", 0.5, 8.0), ("fikit", 2.0, 4.0), ("sharing", 0.5, 8.0))
+# the ops phase: the store, and the segment an invocation is held at
+# (embed and four layers done) before it is paused or cancelled
+OPS_DB = os.path.join(ROOT, "build", "ops_smoke.db")
+OPS_AT = 5
 
 # flash_attention: B, H, Kh, Sq, Sk, D, kwargs
 TEST_CASES = [                        # tests/test_kernels.py's shapes
@@ -827,6 +851,423 @@ def segment_profile(torch, low):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------- load and ops phases
+def hi_layers() -> int:
+    """qwen3-4b's layers: flash launches of one of its invocations (the
+    mamba2 side of pair A launches none)."""
+    from repro_torch.config import get_config
+    return get_config(HI).num_layers
+
+
+def load_capacity() -> dict:
+    """serve_load's services (gold qwen3-4b B1 S32, bronze mamba2-2.7b B2
+    S32) onboarded once: their mean measured JCTs and the request rate
+    the card serves one at a time, 1 / (share·JCT_hi + (1-share)·JCT_lo),
+    as ``benchmarks/bench_serving_load.py`` derives its rates."""
+    from repro_torch.config import get_config
+    from repro_torch.core.policy import Mode
+    from repro_torch.serving import InferenceService, ServingSystem
+    hi = InferenceService(get_config(HI), priority=0, batch=1, seq=32)
+    lo = InferenceService(get_config(SSM_LO), priority=5, batch=2, seq=32)
+    with ServingSystem(Mode.FIKIT, measure_runs=MEASURE_RUNS) as sys_:
+        j_hi = statistics.mean(sys_.onboard(hi))
+        j_lo = statistics.mean(sys_.onboard(lo))
+    del hi, lo
+    cap = 1.0 / (LOAD_SHARE * j_hi + (1 - LOAD_SHARE) * j_lo)
+    return {"gold_jct_ms": 1e3 * j_hi, "bronze_jct_ms": 1e3 * j_lo,
+            "capacity_rps": cap}
+
+
+@contextlib.contextmanager
+def recorded_planes():
+    """Every admission plane the engine builds keeps its event log (the
+    ``admit`` events count the groups the engine ran); yields the list
+    the planes land in."""
+    from repro_torch.serving import engine
+    planes = []
+
+    class Recording(engine.AdmissionPlane):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **dict(kw, record_events=True))
+            planes.append(self)
+    with mock.patch.object(engine, "AdmissionPlane", Recording):
+        yield planes
+
+
+def load_run(torch, K, mode, factor, seconds, cap):
+    """The ``load`` path: serve_load of pair A at full size under ``mode``
+    at ``factor`` × the capacity, with every launch counter set to 0
+    before it and read after it. Fails on a FAILED ticket, a priority
+    inversion, a class that breaks the plane's invariant, a flash count
+    other than 36 per qwen3 invocation the engine ran, or no gold
+    completion at half the capacity."""
+    from repro_torch.launch.serve import serve_load
+    rate = factor * cap["capacity_rps"]
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_planes() as planes:
+        reset_launches(K)
+        t0 = time.perf_counter()
+        out = serve_load(HI, SSM_LO, mode=mode, rate=rate, duration=seconds,
+                         hi_share=LOAD_SHARE, deadline=LOAD_DEADLINE,
+                         diurnal=True, measure_runs=MEASURE_RUNS,
+                         seed=LOAD_SEED, reduced=False, device="cuda",
+                         verbose=False)
+        launches = read_launches(K)
+        wall = time.perf_counter() - t0
+    (plane,) = planes
+    peak = torch.cuda.max_memory_allocated()
+    st = plane.stats()
+    admits = [e for e in plane.events if e[1] == "admit"]
+    # the plane holds its system, whose engine holds every kernel's
+    # request and with it the models
+    del plane, planes
+    free(torch)
+    groups = {c: sum(1 for e in admits if e[2] == c) for c in st["classes"]}
+    classes = {c: {k: s[k] for k in (
+        "offered", "admitted", "completed", "rejected", "shed", "requeued",
+        "failed", "cancelled", "p50_ms", "p99_ms", "mean_ms", "goodput")}
+        for c, s in st["classes"].items()}
+    for c in classes:
+        classes[c]["groups"] = groups[c]
+        classes[c]["mean_group"] = (classes[c]["admitted"] / groups[c]
+                                    if groups[c] else 0.0)
+    rec = {"mode": mode, "factor": factor, "rate_rps": rate,
+           "schedule_s": seconds, "offered": out["offered"],
+           "feeder_lag_max_ms": out["feeder_lag_max_ms"],
+           "priority_inversions": st["priority_inversions"],
+           "classes": classes, "launches": launches,
+           "peak_mem_bytes": peak, "wall_s": wall}
+    log(f"  {mode} {factor}x: " + json.dumps(rec))
+    bad = []
+    for c, s in classes.items():
+        if s["failed"]:
+            bad.append(f"{c}: {s['failed']} FAILED tickets")
+        if s["offered"] != (s["admitted"] + s["rejected"] + s["shed"]
+                            + s["requeued"]):
+            bad.append(f"{c}: offered != admitted + rejected + shed + "
+                       f"requeued")
+        if s["admitted"] != s["completed"] + s["failed"] + s["cancelled"]:
+            bad.append(f"{c}: admitted != completed + failed + cancelled")
+    if st["priority_inversions"] or any(e[4] for e in admits):
+        bad.append(f"{st['priority_inversions']} priority inversions")
+    need = hi_layers() * (1 + MEASURE_RUNS + groups["gold"])
+    if launches["flash_attention"] != need:
+        bad.append(f"flash launches {launches['flash_attention']}, the "
+                   f"run's {groups['gold']} gold groups need exactly {need}")
+    if factor <= 0.5 and not classes["gold"]["completed"]:
+        bad.append("no gold completion at half the capacity")
+    if bad:
+        raise AssertionError(f"load {mode} {factor}x: " + "; ".join(bad))
+    return rec
+
+
+@contextlib.contextmanager
+def kept_systems():
+    """Every ServingSystem that stops is kept (with its engine's record of
+    each kernel's start and end); yields the list."""
+    from repro_torch.serving import engine
+    kept = []
+    real_stop = engine.ServingSystem.stop
+
+    def stop(self):
+        kept.append(self)
+        real_stop(self)
+    with mock.patch.object(engine.ServingSystem, "stop", stop):
+        yield kept
+
+
+@contextlib.contextmanager
+def timed_records():
+    """Times every write-ahead completion record the store commits; yields
+    the list of their durations (s)."""
+    from repro_torch.core.jobstore import JobStore
+    times = []
+    real = JobStore.record_completion
+
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(self, *a, **kw)
+        finally:
+            times.append(time.perf_counter() - t0)
+    with mock.patch.object(JobStore, "record_completion", timed):
+        yield times
+
+
+def sharing_sk_sg(sys_, key, kind="layer") -> dict:
+    """Sharing-phase SK (a kernel's start to end) and SG (its end to the
+    next kernel's start of the same invocation) of ``key``'s ``kind``
+    segments, from the engine's record of every kernel it ran."""
+    runs = {}
+    for r in sys_.engine.records():
+        if r.req.task_key == key:
+            runs.setdefault(r.req.task_instance, []).append(r)
+    sk, sg = [], []
+    for recs in runs.values():
+        recs.sort(key=lambda r: r.req.seq_index)
+        for a, b in zip(recs, recs[1:] + [None]):
+            if a.req.kernel_id.name.endswith("/" + kind):
+                sk.append(a.end - a.start)
+                if b is not None:
+                    sg.append(b.start - a.end)
+    return {"SK_ms": 1e3 * statistics.mean(sk),
+            "SG_ms": 1e3 * statistics.mean(sg), "segments": len(sk)}
+
+
+def ops_pair(torch, K, jobstore):
+    """Pair A's serve_pair at full size under FIKIT, with or without the
+    ops plane's store: hi JCT, qwen3's sharing-phase layer SK/SG and the
+    time of each write-ahead record."""
+    from repro_torch.config import get_config
+    from repro_torch.core.task import TaskKey
+    from repro_torch.launch.serve import serve_pair
+    with kept_systems() as kept, timed_records() as rec_times:
+        reset_launches(K)
+        out = serve_pair(HI, SSM_LO, mode="fikit", reduced=False,
+                         device="cuda", requests=REQUESTS,
+                         measure_runs=MEASURE_RUNS, jobstore=jobstore,
+                         verbose=False)
+        launches = read_launches(K)
+    (sys_,) = kept
+    hi = sharing_sk_sg(sys_, TaskKey(get_config(HI).name, (2, 48)))
+    lo = sharing_sk_sg(sys_, TaskKey(get_config(SSM_LO).name, (4, 48)))
+    del kept, sys_
+    free(torch)
+    rec = {"jobstore": jobstore is not None,
+           "high_jct_ms": out["high_jct_ms"], "low_jct_ms": out["low_jct_ms"],
+           "fills": out["fills"], "qwen3_layer_sharing": hi,
+           "mamba2_layer_sharing": lo, "launches": launches,
+           "records": len(rec_times)}
+    if rec_times:
+        srt = sorted(rec_times)
+        rec["record_ms"] = {"mean": 1e3 * statistics.mean(srt),
+                            "p50": 1e3 * srt[len(srt) // 2],
+                            "max": 1e3 * srt[-1]}
+    log("  serve_pair " + ("with" if jobstore else "without")
+        + " jobstore: " + json.dumps(rec))
+    need = hi_layers() * (1 + MEASURE_RUNS + REQUESTS)
+    if launches["flash_attention"] != need:
+        raise AssertionError(f"ops serve_pair: flash launches "
+                             f"{launches['flash_attention']}, need {need}")
+    if jobstore is not None:
+        # every segment of the served requests, qwen3's and mamba2's
+        want = (n_segments(HI) + n_segments(SSM_LO)) * REQUESTS
+        if len(rec_times) != want:
+            raise AssertionError(f"{len(rec_times)} write-ahead records, "
+                                 f"the served requests have {want} kernels")
+    return rec
+
+
+def n_segments(name) -> int:
+    """Segments of one invocation of a dense or SSM model: embed, one a
+    layer, head."""
+    from repro_torch.config import get_config
+    return get_config(name).num_layers + 2
+
+
+def _wait(pred, what, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def _held_at(svc, at):
+    """Hold ``svc``'s segment ``at`` until released: returns (entered,
+    release, undo)."""
+    import threading
+    seg = svc.svc.segments[at]
+    body = seg.fn
+    entered, release = threading.Event(), threading.Event()
+
+    def fn(state):
+        entered.set()
+        release.wait(60)
+        return body(state)
+    seg.fn = fn
+
+    def undo():
+        release.set()
+        seg.fn = body
+    return entered, release, undo
+
+
+def device_bytes(torch, sys_) -> int:
+    """Device memory allocated by live tensors once the engine lets go of
+    the last kernels it ran: a no-op kernel goes through the engine first
+    (its device thread keeps the last kernel's request and output until
+    the next one arrives), then the record of finished kernels is cleared
+    (each record keeps its request, whose payload holds the segment's
+    input)."""
+    from repro_torch.core.client import HookClient, Segment
+    from repro_torch.core.task import TaskKey
+    noop = Segment("flush/noop", lambda state: None)
+    HookClient(sys_.engine, TaskKey("flush"), 9, [noop],
+               identify=False).run(None)
+    gc.collect()
+    with sys_.engine._lock:
+        sys_.engine._records.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def ops_verbs(torch, K, db):
+    """One full-width qwen3-4b service under a ServingSystem with the
+    store at ``db``: an uninterrupted invocation, one paused at segment
+    OPS_AT and resumed through control rows the poller consumes (its
+    tokens must equal the first's), and one cancelled there (its memory
+    must come back)."""
+    import threading
+    from repro_torch.config import get_config
+    from repro_torch.core import jobstore as js
+    from repro_torch.core.policy import Mode
+    from repro_torch.serving import InferenceService, ServingSystem
+    hi = InferenceService(get_config(HI), priority=0, batch=2, seq=48,
+                          host_gap=0.002)
+    rec = {}
+    with js.JobStore(db) as cli, ServingSystem(
+            Mode.FIKIT, measure_runs=MEASURE_RUNS, jobstore=db) as sys_:
+        sys_.onboard(hi)
+        # keep the sampled tokens of each invocation from here on
+        head = hi.svc.segments[-1]
+        sample, toks = head.host_work, []
+        head.host_work = lambda x: (toks.append(sample(x)), toks[-1])[1]
+        reset_launches(K)
+        rec["uninterrupted_jct_ms"] = 1e3 * sys_.invoke(hi)[0]
+
+        def running():
+            jobs = cli.jobs(states=(js.RUNNING,))
+            return jobs[-1].job_id if jobs else None
+
+        # pause, then resume
+        entered, release, undo = _held_at(hi, OPS_AT)
+        before = device_bytes(torch, sys_)
+        out = {}
+        th = threading.Thread(target=lambda: out.update(
+            jcts=sys_.invoke(hi)))
+        th.start()
+        try:
+            _wait(entered.is_set, "the held segment")
+            job = running()
+            cli.request_control("pause", job)
+            _wait(lambda: cli.job(job).state == js.PAUSED, "PAUSED")
+            release.set()
+            time.sleep(0.3)
+            held = cli.job(job).completed
+            rec["paused_bytes"] = device_bytes(torch, sys_) - before
+            time.sleep(0.2)
+            if cli.job(job).completed != held:
+                raise AssertionError("a paused invocation kept running")
+            cli.request_control("resume", job)
+            th.join(60)
+        finally:
+            undo()
+        if th.is_alive() or cli.job(job).state != js.DONE:
+            raise AssertionError(f"paused job {job} did not finish DONE")
+        rec["paused_watermark"] = held
+        rec["paused_resumed_jct_ms"] = 1e3 * out["jcts"][0]
+        rec["tokens_equal"] = bool(len(toks) == 2
+                                   and (toks[0] == toks[1]).all())
+        if held != OPS_AT + 1 or not rec["tokens_equal"]:
+            raise AssertionError(f"pause/resume: watermark {held} (want "
+                                 f"{OPS_AT + 1}), tokens equal "
+                                 f"{rec['tokens_equal']}")
+
+        # cancel
+        entered, release, undo = _held_at(hi, OPS_AT)
+        before = device_bytes(torch, sys_)
+        th = threading.Thread(target=lambda: out.update(
+            jcts=sys_.invoke(hi)))
+        th.start()
+        try:
+            _wait(entered.is_set, "the held segment")
+            job = running()
+            cli.request_control("cancel", job)
+            _wait(lambda: cli.job(job).state == js.CANCELLED, "CANCELLED")
+            release.set()
+            th.join(60)
+        finally:
+            undo()
+        after = device_bytes(torch, sys_)
+        rec["cancelled_jcts"] = out["jcts"]
+        rec["cancelled_watermark"] = cli.job(job).completed
+        rec["cancelled_invocations"] = sys_.cancelled_invocations
+        rec["bytes_before_cancel"], rec["bytes_after_cancel"] = before, after
+        launches = read_launches(K)
+        rec["launches"] = launches
+        status = sys_.status()
+        rec["rejected_controls"] = status["rejected_controls"]
+        rec["poller_deaths"] = status["poller_deaths"]
+    log("  pause/resume/cancel: " + json.dumps(rec))
+    del hi, toks
+    free(torch)
+    if (out["jcts"] or rec["cancelled_invocations"] != 1
+            or rec["cancelled_watermark"] != OPS_AT + 1 or after != before):
+        raise AssertionError(f"cancel: {rec}")
+    # two whole invocations, and the cancelled one's layers before OPS_AT
+    need = 2 * hi_layers() + OPS_AT
+    if launches["flash_attention"] != need:
+        raise AssertionError(f"ops verbs: flash launches {launches}, need "
+                             f"{need}")
+    if rec["rejected_controls"] or rec["poller_deaths"]:
+        raise AssertionError(f"ops verbs: poller {status}")
+    return rec
+
+
+def ops_recover(torch, K, db):
+    """A RUNNING row left in the store, as a killed run leaves it, re-run
+    to DONE by ``serve_pair(..., resume=True)``; then the ``status`` verb,
+    run as a subprocess, lists every job of the store DONE or
+    CANCELLED."""
+    from repro_torch.config import get_config
+    from repro_torch.core import jobstore as js
+    from repro_torch.core.task import TaskKey
+    from repro_torch.launch.serve import serve_pair
+    n_kernels = n_segments(HI)
+    with js.JobStore(db) as store:
+        key = TaskKey(get_config(HI).name, (2, 48))
+        job = store.record_submit(None, key, 0, n_kernels=n_kernels,
+                                  state=js.RUNNING)
+        for seq in range(5):
+            store.record_completion(job, seq)
+    reset_launches(K)
+    out = serve_pair(HI, SSM_LO, mode="fikit", reduced=False, device="cuda",
+                     requests=1, measure_runs=1, jobstore=db, resume=True,
+                     verbose=False)
+    launches = read_launches(K)
+    free(torch)
+    with js.JobStore(db) as store:
+        row = store.job(job)
+        rows = [(j.job_id, j.key.process, j.state) for j in store.jobs()]
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "status",
+         "--jobstore", db], capture_output=True, text=True, timeout=120,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    listed = [line.split() for line in res.stdout.splitlines()[1:]]
+    states = sorted({cols[3] for cols in listed})
+    rec = {"recovered_jobs": out["recovered_jobs"], "job": job,
+           "state": row.state, "completed": row.completed,
+           "launches": launches, "status_rc": res.returncode,
+           "status_jobs": len(listed), "store_jobs": len(rows),
+           "status_states": states}
+    log("  recover + status: " + json.dumps(rec))
+    print(res.stdout, end="", flush=True)
+    # warm-up, one measured run, the recovered job and one request
+    need = hi_layers() * 4
+    bad = (out["recovered_jobs"] != 1 or row.state != js.DONE
+           or row.completed != n_kernels or res.returncode != 0
+           or len(listed) != len(rows)
+           or not set(states) <= {js.DONE, js.CANCELLED}
+           or launches["flash_attention"] != need)
+    if bad:
+        raise AssertionError(f"recover/status: {rec}; stderr "
+                             f"{res.stderr[-2000:]}; need flash {need}")
+    return rec
+
+
 # the instances the build phase checks in each library: the kernel's
 # mangled name, how to label an instance, the SASS opcode it must show
 # (None: no tensor cores), and how many instances there are. flash and
@@ -1058,6 +1499,26 @@ def main() -> int:
         log(f"[profile] {HI} + {low}, measurement phase: SK/SG per "
             f"segment, one block's device time")
         segment_profile(torch, low)
+
+    log(f"[load] serve_load({HI!r}, {SSM_LO!r}, reduced=False): open-loop "
+        f"Poisson gold + diurnal bronze through the admission plane")
+    cap = load_capacity()
+    free(torch)
+    log("  capacity from the measurement phase: " + json.dumps(cap))
+    for mode, factor, seconds in LOAD_RUNS:
+        load_run(torch, K, mode, factor, seconds, cap)
+
+    log(f"[ops] serve_pair({HI!r}, {SSM_LO!r}, reduced=False) without and "
+        f"with jobstore={os.path.relpath(OPS_DB, ROOT)!r}; pause, resume, "
+        f"cancel, recover, status")
+    os.makedirs(os.path.dirname(OPS_DB), exist_ok=True)
+    for suffix in ("", "-wal", "-shm"):
+        if os.path.exists(OPS_DB + suffix):
+            os.remove(OPS_DB + suffix)
+    for store in (None, OPS_DB, OPS_DB, None):   # in turns
+        ops_pair(torch, K, store)
+    ops_verbs(torch, K, OPS_DB)
+    ops_recover(torch, K, OPS_DB)
 
     pair_e = served[HYB]["launches"]
     entries = [

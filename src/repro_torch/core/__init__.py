@@ -2,9 +2,8 @@
 
 Every module here except ``kernel_id`` is the reference's source with the
 import prefix changed (``tests/test_torch_core_copy.py`` pins that);
-``kernel_id._aval_fp`` also names torch dtypes. The discrete-event
-simulator (``scheduler``), the durable ``jobstore`` and ``profile_store``
-are not part of this package yet.
+``kernel_id._aval_fp`` also names torch dtypes. Nothing here imports
+torch.
 """
 from repro_torch.core.kernel_id import KernelID, kernel_id_for  # noqa: F401
 from repro_torch.core.task import (  # noqa: F401
@@ -17,6 +16,7 @@ from repro_torch.core.fikit import (  # noqa: F401
     EPSILON, best_prio_fit, best_prio_fit_scan, fikit_procedure,
 )
 from repro_torch.core.policy import (  # noqa: F401
-    FikitPolicy, ListTrace, Mode, NullTrace, RingTrace, make_trace_sink,
+    FikitPolicy, ListTrace, NullTrace, RingTrace, make_trace_sink,
 )
 from repro_torch.core.placement import DISCIPLINES, PlacementLayer  # noqa: F401
+from repro_torch.core.scheduler import Mode, SimScheduler  # noqa: F401

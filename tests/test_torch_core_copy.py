@@ -17,6 +17,9 @@ VERBATIM = [
     "core/client.py", "config.py", "configs/qwen3_4b.py",
     "configs/stablelm_1_6b.py", "configs/recurrentgemma_9b.py",
     "configs/mamba2_2_7b.py", "configs/granite_20b.py",
+    "core/faults.py", "core/profile_store.py", "core/jobstore.py",
+    "core/scheduler.py", "serving/loadgen.py", "serving/admission.py",
+    "serving/workers.py",
 ]
 
 
@@ -33,11 +36,13 @@ def test_copy_is_verbatim(rel):
 
 
 def _without(source, fn_name):
-    """Module source with the top-level function ``fn_name`` cut out."""
+    """Module source with the top-level function or class ``fn_name`` cut
+    out."""
     tree = ast.parse(source)
     lines = source.splitlines(keepends=True)
     (node,) = [n for n in tree.body
-               if isinstance(n, ast.FunctionDef) and n.name == fn_name]
+               if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+               and n.name == fn_name]
     return "".join(lines[:node.lineno - 1] + lines[node.end_lineno:])
 
 
@@ -60,3 +65,17 @@ def test_aval_fp_names_torch_dtypes_as_numpy_does():
     kid = kernel_id_for("svc/layer", inputs=[torch.zeros(1, 4,
                                                          dtype=torch.int32)])
     assert kid.encode() == "svc/layer|()|(1, 4, 'int32')"
+
+
+def test_serving_system_is_the_reference_s():
+    """``serving/engine.py`` differs from the reference only in its module
+    docstring, the reference's ``import jax`` and ``InferenceService``
+    (torch weights on a ``device``): ``ServingSystem``, with its ops and
+    admission planes, is the reference's source."""
+    want, port = _sources("serving/engine.py")
+
+    def body(source):
+        source = _without(source, "InferenceService")
+        source = source.split("from __future__ import annotations\n", 1)[1]
+        return source.replace("import jax\n\n", "")
+    assert body(port) == body(want)

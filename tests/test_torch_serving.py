@@ -250,7 +250,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         "repro_torch.configs.mamba2_2_7b, repro_torch.configs.granite_20b, "
         "repro_torch.kernels.rglru_scan.ops, "
         "repro_torch.kernels.decode_attention.ops, "
-        "repro_torch.kernels.flash_attention.ops\n"
+        "repro_torch.kernels.flash_attention.ops, "
+        "repro_torch.core.faults, repro_torch.core.profile_store, "
+        "repro_torch.core.jobstore, repro_torch.core.scheduler, "
+        "repro_torch.serving.loadgen, repro_torch.serving.admission, "
+        "repro_torch.serving.workers\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

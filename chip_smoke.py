@@ -9,10 +9,11 @@ Phases, each of which exits non-zero on failure:
 2. build: nvcc builds every kernel of the port's paths from the sources
    in this checkout (``src/repro_torch/csrc``) for sm_90a, one nvcc per
    source, all started together; every bf16 instance of the flash kernel
-   must show HGMMA (wgmma) and every bf16 instance of the decode kernel
-   HMMA (mma.sync) in ``cuobjdump -sass``, and none of them, nor either
-   instance of the rglru_scan kernel (fp32, bf16; no tensor cores), may
-   spill in ptxas's report;
+   (head dims 64, 96, 120, 128, 256, one or two warpgroups) must show
+   HGMMA (wgmma) and every bf16 instance of the decode kernel (64, 120,
+   128, 256) HMMA (mma.sync) in ``cuobjdump -sass``, and none of them,
+   nor either instance of the rglru_scan kernel (fp32, bf16; no tensor
+   cores), may spill in ptxas's report;
 3. kernels: flash_attention, decode_attention and rglru_scan, each
    against its plain PyTorch version on the card, at the test shapes, the
    shapes the paths give them (flash also on the paths' own layout:
@@ -25,35 +26,57 @@ Phases, each of which exits non-zero on failure:
    scan plan (column tile, segments, threads, blocks, CTAs), its rows a
    thread held to the library's; rglru_scan also at S = 1, S one around
    a block and two, W off the column tile, B 1 at S 8192 and bf16 at the
-   prompt; prints the error and the median times of the kernel, the
-   plain version and one PyTorch library call of the same function where
-   there is one (a yardstick only), beside the least time the card
-   could take (bytes over 3.35 TB/s or operations over the peak rate of
-   the input type, whichever is larger);
+   prompt; this slice's paths: D 120 flash at h2o-danube-3-4b's serving
+   and prompt shapes (and D 128 at the same shapes), non-causal
+   cross-attention of 48 and of 1 row over 1024 frames and the 1024-frame
+   encoder (seamless-m4t-medium), llava-next's 2881-token sequence, D 120
+   decode on h2o's wrapped 4096-slot ring (and D 128), seamless's and
+   llava's decode caches; prints the error and the median times of the
+   kernel, the plain version and one PyTorch library call of the same
+   function where there is one (a yardstick only), beside the least time
+   the card could take (bytes over 3.35 TB/s or operations over the peak
+   rate of the input type, whichever is larger);
 4. model: full-width, full-depth qwen3-4b, stablelm-1.6b,
-   recurrentgemma-9b, granite-20b and mamba2-2.7b (random bf16 weights
+   recurrentgemma-9b, granite-20b, mamba2-2.7b, h2o-danube-3-4b,
+   seamless-m4t-medium and llava-next-mistral-7b (random bf16 weights
    from a seed) give finite logits of the right shape; one layer of each
-   dense model and one rec and one attn block of the hybrid agree with
-   the same block run on the plain versions; mamba2, which runs no
-   kernel, is held to itself in its two forms: each layer's chunked scan
-   over S tokens against the recurrent decode of the last token from the
-   cache of the first S - 1 (the whole model's last-position logits from
-   prefill + ``decode_step`` are reported beside ``forward``'s);
+   dense model and of llava, one rec and one attn block of the hybrid,
+   and one encoder and one decoder layer (self- and cross-attention) of
+   seamless agree with the same block run on the plain versions; mamba2,
+   which runs no kernel, is held to itself in its two forms: each layer's
+   chunked scan over S tokens against the recurrent decode of the last
+   token from the cache of the first S - 1 (the whole model's
+   last-position logits from prefill + ``decode_step`` are reported
+   beside ``forward``'s);
 5. generate: prefill then 16 ``decode_step``s of full-width qwen3-4b
    (B2, prompt 1024), recurrentgemma-9b (B2, prompt 2100, past its 2048
    window, so the cache is a wrapped ring) and mamba2-2.7b (B2, prompt
-   2048, a multiple of its 256-token SSD chunk); logits at every step
-   against the same run on the plain versions, the decode kernel's
-   launches = steps x attention layers, flash's = attention layers (0
-   for mamba2), the time of ``api.prefill`` (host clock around a
-   synchronised call, median of 3) and the time per decode step;
+   2048, a multiple of its 256-token SSD chunk), h2o-danube-3-4b (B2,
+   prompt 4160, past its 4096 window: a wrapped D 120 ring),
+   seamless-m4t-medium (B2, 1024 frames + 64 tokens) and
+   llava-next-mistral-7b (B2, 2880 patches + 64 tokens; these three with
+   wq and wk at fan_in d_model, ``rescale_qk``); logits at every step
+   against the same run on the plain versions (held, except the
+   hybrid's: reported), the decode kernel's
+   launches = steps x self-attention layers, flash's = the prompt's
+   attention layers (0 for mamba2; seamless: 12 encoder + 12 decoder
+   self + 12 cross) + steps x cross-attention layers (seamless's 12),
+   the time of ``api.prefill`` (host clock around a synchronised call,
+   median of 3) and the time per decode step;
 6. serving: ``serve_pair`` hosts qwen3-4b (Q0) with stablelm-1.6b, with
    recurrentgemma-9b (pair E of the paper's Fig 16), with mamba2-2.7b
-   (pair A) and with granite-20b (pair B), at full size under FIKIT and
-   under SHARING; every kernel's launch counter is set to 0 before each
-   run and read after it, and must show every call of the run;
+   (pair A) and with granite-20b (pair B); stablelm-1.6b (Q0) with
+   h2o-danube-3-4b (pair F); seamless-m4t-medium (Q0) with
+   llava-next-mistral-7b (pair J); at full size under FIKIT and under
+   SHARING, each system released before the next; every kernel's launch
+   counter is set to 0 before each run and read after it, and flash must
+   show exactly every attention layer of the run's invocations, and its
+   launches with Sq != Sk exactly their cross-attention layers (flash
+   counts its launches per shape, so each entry of the ``kernels`` line
+   gives the launches at its own shape);
 7. profile: the measurement phase's SK/SG per segment of each service at
-   full size, beside one layer's (or block's) device time;
+   full size, beside one layer's (or block's) device time (seamless: its
+   whole encode segment and one decoder layer);
 8. load: ``serve_load`` of pair A at full size, open-loop Poisson gold
    (qwen3-4b B1 S32, Q0, a 0.5 s deadline) and diurnal bronze (mamba2-2.7b
    B2 S32, Q5) through the admission plane, at 0.5x and 2x the capacity
@@ -80,6 +103,7 @@ of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -113,6 +137,19 @@ GEN_STEPS = 16
 # the generate phase's (model, batch, prompt): past the hybrid's 2048
 # window; mamba2's prompt a multiple of its 256-token SSD chunk
 GENERATE = ((HYB, 2, 2100), (HI, 2, 1024), (SSM_LO, 2, 2048))
+# h2o-danube-3-4b (dense, head dim 120: pair F's low service), and
+# seamless-m4t-medium (encoder-decoder) and llava-next-mistral-7b (VLM),
+# pair J's high and low services
+H2O, SEAMLESS, LLAVA = ("h2o-danube-3-4b", "seamless-m4t-medium",
+                        "llava-next-mistral-7b")
+# the serving phase's (high Q0, low Q5) pairs: qwen3-4b over each earlier
+# low service, then pairs F and J of the paper's Fig 16
+PAIRS = tuple((HI, low) for low in LOW_SERVICES) + ((LO, H2O),
+                                                     (SEAMLESS, LLAVA))
+# the generate phase's (model, batch, text tokens) for these: h2o past
+# its 4096 window (a wrapped D 120 ring), seamless over its 1024 frames,
+# llava after its 2880 patches
+GENERATE_NEW = ((H2O, 2, 4160), (SEAMLESS, 2, 64), (LLAVA, 2, 64))
 KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
 # the load phase: serve_load's classes (gold Q0 with a 0.5 s deadline,
 # bronze Q5 with none), 30 % of the offered requests gold, bronze
@@ -141,6 +178,19 @@ HI_PROMPT = (2, 32, 8, 1024, 1024, 128, {})  # qwen3-4b prefill, prompt 1024
 RAGGED = (2, 4, 2, 48, 48, 64, dict(window=16))
 ALL_MASKED = (1, 4, 2, 40, 72, 64, dict(window=0))
 LONG = (1, 32, 8, 4096, 4096, 128, {})
+# this slice's paths: h2o-danube-3-4b's head dim 120 serving (B4) and its
+# 4160-token prompt past the 4096 window; seamless-m4t-medium's
+# non-causal cross-attention of 48 decoder rows (serving) and of one (a
+# decode step) over 1024 frames, and its encoder; llava-next's 2881-token
+# sequence (2880 patches + 1 token, off every tile grid) when serving
+H2O_SHAPE = (4, 32, 8, 48, 48, 120, dict(window=4096))
+H2O_PROMPT = (2, 32, 8, 4160, 4160, 120, dict(window=4096))
+CROSS_48 = (2, 16, 16, 48, 1024, 64, dict(causal=False))
+CROSS_1 = (2, 16, 16, 1, 1024, 64, dict(causal=False))
+ENCODER = (2, 16, 16, 1024, 1024, 64, dict(causal=False))
+LLAVA_SHAPE = (4, 32, 8, 2881, 2881, 128, dict(window=4096))
+# the same work at head dim 128, beside the D 120 instance
+D128_AT_H2O = [case[:5] + (128, case[6]) for case in (H2O_SHAPE, H2O_PROMPT)]
 # the bf16 kernel's tiling edges (tests/test_torch_flash_attention.py):
 # Sq, Sk off the tile grid with Sk != Sq; window and chunk borders inside
 # a kv tile; D 96 past 128 rows; two warpgroups a CTA, one past Sq
@@ -166,6 +216,13 @@ RING_CASE = (1, 4, 2, 256, 64, dict(window=64), 99)
 DEC_HI = (2, 32, 8, 1040, 128, {}, 1039)    # qwen3-4b, generate phase
 DEC_HYB = (2, 16, 1, 2048, 256, dict(window=2048), 2115)   # wrapped ring
 DEC_MASKED = (1, 4, 2, 96, 64, dict(window=0), 50)
+# h2o-danube-3-4b's wrapped 4096-slot D 120 ring at the generate phase's
+# last step, and the same at D 128; seamless's self-attention (64 + 16
+# slots, G 1) and llava's (2880 + 64 + 16 slots)
+DEC_H2O = (2, 32, 8, 4096, 120, dict(window=4096), 4175)
+DEC_H2O_D128 = DEC_H2O[:4] + (128,) + DEC_H2O[5:]
+DEC_SEAMLESS = (2, 16, 16, 80, 64, {}, 79)
+DEC_LLAVA = (2, 32, 8, 2960, 128, dict(window=4096), 2959)
 DEC_LONG = (1, 32, 8, 32768, 128, {}, 32767)
 # the bf16 kernel's edges (tests/test_torch_decode_attention.py): G 1, 16,
 # 32 and 64 (one to four m16 head tiles); C 1000, off the 16-slot tile;
@@ -501,10 +558,21 @@ def launchers(K) -> dict:
 def reset_launches(K) -> None:
     for fn in K["launchers"].values():
         fn.launches = 0
+    K["launchers"]["flash_attention"].launches_by_shape.clear()
 
 
 def read_launches(K) -> dict:
     return {name: fn.launches for name, fn in K["launchers"].items()}
+
+
+def shape_key(case) -> str:
+    return "B{} H{} Kh{} Sq{} Sk{} D{}".format(*case[:6])
+
+
+def read_flash_shapes(K) -> dict:
+    """flash launches per (B, H, Kh, Sq, Sk, D) since the last reset."""
+    by_shape = K["launchers"]["flash_attention"].launches_by_shape
+    return {shape_key(k): n for k, n in sorted(by_shape.items())}
 
 
 @contextlib.contextmanager
@@ -549,12 +617,17 @@ def checked_calls(K):
             # the wrapper counts on the name it is patched under: these
             # comparison launches land here, not on the path's counter
             checked.launches = 0
+            checked.launches_by_shape = collections.Counter()
             stack.enter_context(mock.patch.object(ops, name, checked))
         yield {"worst_err_to_limit": worst, "calls": calls}
 
 
 def close_enough(label, y, y_ref, rel=2e-2):
-    """bf16 agreement: max|kernel - plain| within ``rel`` of max|plain|."""
+    """bf16 agreement: max|kernel - plain| within ``rel`` of max|plain|
+    (of the activations, where a block's output is the encoder-decoder's
+    (encoder output, activations) state)."""
+    if isinstance(y, tuple):
+        y, y_ref = y[1], y_ref[1]
     diff = float((y.float() - y_ref.float()).abs().max())
     scale = float(y_ref.float().abs().max())
     if not diff <= rel * scale:
@@ -615,38 +688,57 @@ def ssm_forms_check(torch, model, tokens, logits, cfg):
 def model_check(torch, K, name, batch, seq, keep=False):
     """Full-size model: finite logits of the right shape, and its first
     block of each kind with the kernels against the plain versions (for
-    mamba2, its chunked form against its recurrent one)."""
+    mamba2, its chunked form against its recurrent one; for the
+    encoder-decoder, an encoder layer and a decoder layer, self- and
+    cross-attention)."""
     from repro_torch.config import get_config
-    from repro_torch.models import api, rglru, segmentation
+    from repro_torch.models import api, encdec, rglru, segmentation
     from repro_torch.models import transformer as tfm
     cfg = get_config(name)
     t0 = time.perf_counter()
     model = api.build_params(cfg, seed=0, device="cuda")
-    tokens = api.make_batch(cfg, batch, seq, device="cuda")
+    inputs = api.make_batch(cfg, batch, seq, device="cuda")
+    positions = seq
+    if cfg.family == "vlm":                  # the patches, then the text
+        positions = cfg.num_patches + inputs[1].shape[1]
     notes = []
     with torch.inference_mode():
-        logits, _ = api.forward(model, tokens, cfg)
-        if tuple(logits.shape) != (batch, seq, cfg.vocab_size):
+        logits, _ = api.forward(model, inputs, cfg)
+        if tuple(logits.shape) != (batch, positions, cfg.vocab_size):
             raise AssertionError(f"{name} logits {tuple(logits.shape)}")
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{name} logits are not finite")
-        x = tfm.embed_tokens(model, tokens, cfg)
-        if cfg.family == "hybrid":
+        if cfg.family == "encdec":
+            frames, tokens = inputs
+            state = (encdec.encode(model, frames, cfg),
+                     tfm.embed_tokens(model, tokens, cfg))
+            blocks = [("encoder layer 0", model.enc_layers[0],
+                       encdec.enc_layer_apply,
+                       frames.to(logits.dtype) @ model.enc_in),
+                      ("decoder layer 0 (self + cross)", model.dec_layers[0],
+                       segmentation._dec_layer, state)]
+        elif cfg.family == "vlm":
+            x = tfm.embed_tokens(model, inputs[1], cfg, inputs[0])
+            blocks = [("layer 0", model.layers[0],
+                       segmentation.layer_fn(cfg), x)]
+        elif cfg.family == "hybrid":
+            x = tfm.embed_tokens(model, inputs, cfg)
             kinds = rglru.block_kinds(cfg)
             blocks = [(kind, model.blocks[kinds.index(kind)],
                        rglru.rec_block_apply if kind == "rec"
-                       else rglru.attn_block_apply)
+                       else rglru.attn_block_apply, x)
                       for kind in ("rec", "attn")]
         elif cfg.family == "ssm":
             blocks = []
-            notes.append(ssm_forms_check(torch, model, tokens, logits, cfg))
+            notes.append(ssm_forms_check(torch, model, inputs, logits, cfg))
         else:
+            x = tfm.embed_tokens(model, inputs, cfg)
             blocks = [("layer 0", model.layers[0],
-                       segmentation.layer_fn(cfg))]
-        for label, block, fn in blocks:
-            y = fn(block, x, cfg)
+                       segmentation.layer_fn(cfg), x)]
+        for label, block, fn, inp in blocks:
+            y = fn(block, inp, cfg)
             with plain_versions(K):
-                y_ref = fn(block, x, cfg)
+                y_ref = fn(block, inp, cfg)
             diff, scale = close_enough(f"{name} {label}", y, y_ref)
             notes.append(f"{label} max|kernel - plain| {diff:.4g} of "
                          f"max|out| {scale:.4g}")
@@ -658,7 +750,7 @@ def model_check(torch, K, name, batch, seq, keep=False):
     return model if keep else None
 
 
-def prefill_times(torch, model, tokens, cfg, runs: int = 3) -> list:
+def prefill_times(torch, model, inputs, cfg, runs: int = 3) -> list:
     """Host-clock ms of ``runs`` synchronised ``api.prefill`` calls (a
     cache GEN_STEPS beyond the prompt), after one warm-up call."""
     from repro_torch.models import api
@@ -667,28 +759,27 @@ def prefill_times(torch, model, tokens, cfg, runs: int = 3) -> list:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            api.prefill(model, tokens, cfg, extra_capacity=GEN_STEPS)
+            api.prefill(model, inputs, cfg, extra_capacity=GEN_STEPS)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return times[1:]
 
 
-def generate(torch, model, tokens, steps, cfg):
-    """Prefill ``tokens`` (a cache GEN_STEPS beyond the prompt), then one
-    ``decode_step`` per row of ``steps``; returns the logits of every
-    step, each step's host-clock ms (around a synchronised call) and the
-    caches."""
+def generate(torch, model, inputs, start, steps, cfg):
+    """Prefill ``inputs`` (a cache GEN_STEPS beyond the prompt), then one
+    ``decode_step`` per row of ``steps`` at positions ``start``,
+    ``start`` + 1, ...; returns the logits of every step, each step's
+    host-clock ms (around a synchronised call) and the caches."""
     from repro_torch.models import api
-    prompt = tokens.shape[1]
     times = []
     with torch.inference_mode():
-        logits, caches = api.prefill(model, tokens, cfg,
+        logits, caches = api.prefill(model, inputs, cfg,
                                      extra_capacity=GEN_STEPS)
         outs = [logits]
         for i in range(len(steps)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, caches = api.decode_step(model, steps[i], prompt + i,
+            logits, caches = api.decode_step(model, steps[i], start + i,
                                              caches, cfg)
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
@@ -696,28 +787,90 @@ def generate(torch, model, tokens, steps, cfg):
     return outs, times, caches
 
 
-def generate_check(torch, K, name, model, batch, prompt, hold_logits):
-    """Prefill ``prompt`` tokens, then GEN_STEPS decode steps (tokens
+def prompt_inputs(torch, cfg, batch, prompt, g):
+    """The generate phase's prompt from generator ``g``: ``prompt`` tokens,
+    after the encoder-decoder's frames (0.02 N(0, 1), in the config's
+    dtype) or the VLM's stub patches; and the position of its first
+    decoded token."""
+    from repro_torch.models import vlm
+    from repro_torch.models.layers import torch_dtype
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                           dtype=torch.int32, device="cuda", generator=g)
+    if cfg.family == "encdec":
+        frames = torch.randn(batch, cfg.encoder_frames, cfg.d_model,
+                             device="cuda", generator=g) * 0.02
+        return (frames.to(torch_dtype(cfg.dtype)), tokens), prompt
+    if cfg.family == "vlm":
+        return ((vlm.stub_patches(cfg, batch, device="cuda"), tokens),
+                cfg.num_patches + prompt)
+    return tokens, prompt
+
+
+def attention_launches(cfg) -> dict:
+    """Launches of each kernel in a prefill and in one decode step: flash
+    per attention layer of the prompt (the encoder-decoder's encoder,
+    decoder self- and cross-attention) and per cross-attention of a step;
+    decode per self-attention layer of a step; rglru_scan per rec block
+    of the prompt (a decode step's rec blocks take one step of the
+    recurrence, not a scan)."""
+    from repro_torch.models import rglru
+    L = cfg.num_layers
+    if cfg.family == "hybrid":
+        attn = rglru.block_kinds(cfg).count("attn")
+        return {"prefill": {"flash_attention": attn, "rglru_scan": L - attn},
+                "step": {"decode_attention": attn}}
+    if cfg.family == "encdec":
+        Le = cfg.num_encoder_layers or L
+        Ld = cfg.num_decoder_layers or L
+        return {"prefill": {"flash_attention": Le + 2 * Ld},
+                "step": {"decode_attention": Ld, "flash_attention": Ld}}
+    attn = 0 if cfg.family == "ssm" else L
+    return {"prefill": {"flash_attention": attn},
+            "step": {"decode_attention": attn}}
+
+
+def rescale_qk(torch, model) -> None:
+    """Scale every attention's wq and wk by sqrt(heads / d_model). The
+    reference init's fan_in for them is the head count (shape[-2]): q and
+    k entries then have a standard deviation near sqrt(d_model / heads)
+    and, without qk-norm, the attention logits one of 50-200, so every
+    softmax row is near one-hot and a one-ulp bf16 difference in a block
+    can move a row's winning key. With fan_in d_model the logits have a
+    standard deviation near 1 and the model is not chaotic."""
+    from repro_torch.models.transformer import Attention
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Attention):
+                for w in (m.wq, m.wk):
+                    w.mul_((w.shape[-2] / w.shape[0]) ** 0.5)
+
+
+def generate_check(torch, K, name, model, batch, prompt, hold_logits,
+                   rescale=False):
+    """Prefill ``prompt`` tokens (after the frames or patches of the
+    encoder-decoder and the VLM), then GEN_STEPS decode steps (tokens
     drawn up front, so every run sees the same ones). Three runs: the
-    kernels' (timed, launches counted); the plain versions' (end-to-end
-    logits compared with the kernels' at every step, and held to them
-    when ``hold_logits``); and one where every kernel call is held to
-    its plain version on the same inputs."""
+    kernels' (timed, launches counted: flash and decode exactly); the
+    plain versions' (end-to-end logits compared with the kernels' at
+    every step, and held to them when ``hold_logits``); and one where
+    every kernel call is held to its plain version on the same inputs.
+    ``rescale``: a model built here gets ``rescale_qk``."""
     from repro_torch.config import get_config
-    from repro_torch.models import api, rglru
+    from repro_torch.models import api
     cfg = get_config(name)
     if model is None:
         model = api.build_params(cfg, seed=0, device="cuda")
+        if rescale:
+            rescale_qk(torch, model)
     g = torch.Generator(device="cuda").manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
-                           dtype=torch.int32, device="cuda", generator=g)
+    inputs, start = prompt_inputs(torch, cfg, batch, prompt, g)
     steps = torch.randint(0, cfg.vocab_size, (GEN_STEPS, batch, 1),
                           dtype=torch.int32, device="cuda", generator=g)
 
     def run():
-        return generate(torch, model, tokens, steps, cfg)
+        return generate(torch, model, inputs, start, steps, cfg)
 
-    prefill = prefill_times(torch, model, tokens, cfg)
+    prefill = prefill_times(torch, model, inputs, cfg)
     free(torch)
     reset_launches(K)
     outs, times, caches = run()
@@ -726,14 +879,9 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits):
         ref_outs, _, _ = run()
     with checked_calls(K) as checked:
         run()
-    if cfg.family == "hybrid":
-        attn_layers = rglru.block_kinds(cfg).count("attn")
-    else:                                # dense: every layer; SSM: none
-        attn_layers = cfg.num_layers if cfg.family == "dense" else 0
-    need = {"decode_attention": GEN_STEPS * attn_layers,
-            "flash_attention": attn_layers}
-    if cfg.family == "hybrid":
-        need["rglru_scan"] = cfg.num_layers - attn_layers
+    per = attention_launches(cfg)
+    need = {k: per["prefill"].get(k, 0) + GEN_STEPS * per["step"].get(k, 0)
+            for k in KERNELS}
     exact = ("decode_attention", "flash_attention")
     if any(launches[k] != need[k] for k in exact) or any(
             launches[k] < v for k, v in need.items()):
@@ -749,18 +897,21 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits):
                    / float(r.float().abs().max()))
     agree = sum(int((o.argmax(-1) == r.argmax(-1)).all())
                 for o, r in zip(outs, ref_outs))
-    kv = [c for c in caches if hasattr(c, "pos")]
+    kv = [getattr(c, "self_kv", c) for c in caches]
+    kv = [c for c in kv if hasattr(c, "pos")]
     if kv:
         size = {"cache_slots": kv[0].capacity}
     else:                        # SSM: a fixed-size state and conv buffers
         size = {"state_bytes": sum(t.numel() * t.element_size()
                                    for c in caches for t in c)}
     rec = {"model": name, "batch": batch, "prompt": prompt,
-           "steps": GEN_STEPS, **size, "launches": launches,
+           "first_decode_position": start, "steps": GEN_STEPS, **size,
+           "launches": launches,
            "prefill_ms_median": statistics.median(prefill),
            "prefill_ms": prefill,
            "decode_step_ms_median": statistics.median(times),
            "decode_step_ms": times, "logits_held": hold_logits,
+           "qk_rescaled": rescale,
            "logits_rel_err_per_step": rel, "argmax_agree_steps": agree,
            "per_call_check": checked}
     log(f"  {name}: " + json.dumps(rec))
@@ -768,56 +919,75 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits):
     return rec
 
 
-def serve_run(torch, K, low, mode):
-    """A serving path: serve_pair at full size under ``mode``, with every
-    launch counter set to 0 before it and read after it."""
+def flash_per_invocation(name, cross=False) -> int:
+    """flash launches of one serving invocation: one per attention layer
+    (the hybrid's attn blocks; none for the SSM; the encoder-decoder's
+    encoder layers and its decoder's self- and cross-attention); with
+    ``cross``, those of the cross-attention alone (Sq != Sk), which are
+    also the flash launches of a decode step."""
+    from repro_torch.config import get_config
+    per = attention_launches(get_config(name))
+    return per["step" if cross else "prefill"].get("flash_attention", 0)
+
+
+def serve_run(torch, K, high, low, mode):
+    """A serving path: serve_pair of (high, low) at full size under
+    ``mode``, with every launch counter set to 0 before it and read after
+    it: flash exactly the invocations' attention layers, rglru_scan at
+    least their rec blocks."""
     from repro_torch.config import get_config
     from repro_torch.launch.serve import serve_pair
-    from repro_torch.models import rglru
     torch.cuda.reset_peak_memory_stats()
     reset_launches(K)
     t0 = time.perf_counter()
-    out = serve_pair(HI, low, mode=mode, reduced=False, device="cuda",
+    out = serve_pair(high, low, mode=mode, reduced=False, device="cuda",
                      requests=REQUESTS, measure_runs=MEASURE_RUNS,
                      verbose=False)
     launches = read_launches(K)
+    by_shape = read_flash_shapes(K)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(torch)
     runs = 1 + MEASURE_RUNS + REQUESTS        # warmup, measured, served
-    lcfg = get_config(low)
-    lo_attn = lcfg.num_layers
-    need = {}
-    if lcfg.family == "hybrid":
-        lo_attn = rglru.block_kinds(lcfg).count("attn")
-        need["rglru_scan"] = (lcfg.num_layers - lo_attn) * runs
-    elif lcfg.family == "ssm":               # no attention, no kernel
-        lo_attn = 0
-    need["flash_attention"] = (get_config(HI).num_layers + lo_attn) * runs
-    rec = dict(out, low=low, launches=launches, peak_mem_bytes=peak,
+    need = {"flash_attention": runs * (flash_per_invocation(high)
+                                       + flash_per_invocation(low))}
+    cross = sum(n for k, n in K["launchers"]["flash_attention"]
+                .launches_by_shape.items() if k[3] != k[4])
+    need_cross = runs * (flash_per_invocation(high, cross=True)
+                         + flash_per_invocation(low, cross=True))
+    for name in (high, low):
+        rec_blocks = attention_launches(get_config(name))["prefill"].get(
+            "rglru_scan", 0)
+        if rec_blocks:
+            need["rglru_scan"] = need.get("rglru_scan", 0) + rec_blocks * runs
+    rec = dict(out, high=high, low=low, launches=launches,
+               flash_launches_by_shape=by_shape, peak_mem_bytes=peak,
                wall_s=wall)
-    log(f"  {low} {mode}: " + json.dumps(rec))
+    log(f"  {high} + {low} {mode}: " + json.dumps(rec))
     short = {k: v for k, v in need.items() if launches[k] < v}
-    if short or launches["flash_attention"] != need["flash_attention"]:
-        raise AssertionError(f"{low} {mode}: launches {launches}, the run "
-                             f"needs at least {need} (flash exactly)")
+    if (short or launches["flash_attention"] != need["flash_attention"]
+            or cross != need_cross):
+        raise AssertionError(f"{high} + {low} {mode}: launches {launches}, "
+                             f"{cross} with Sq != Sk; the run needs at "
+                             f"least {need} (flash exactly), {need_cross} "
+                             f"with Sq != Sk")
     if not (out["high_jct_ms"] > 0 and out["low_jct_ms"] > 0):
         raise AssertionError(f"{mode}: JCTs {out}")
     return rec
 
 
-def segment_profile(torch, low):
+def segment_profile(torch, high, low):
     """Where a request's time goes: the measurement phase's per-run JCTs,
     SK (mean segment time incl. its device sync) and SG (host gap after
     it) per KernelID, beside the device time of one layer (or one block
-    of each kind) alone."""
+    of each kind; for the encoder-decoder its whole encode segment and
+    one decoder layer) alone."""
     from repro_torch.config import get_config
     from repro_torch.core.policy import Mode
-    from repro_torch.models import rglru, segmentation
+    from repro_torch.models import encdec, rglru, segmentation
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import InferenceService, ServingSystem
-    hi = InferenceService(get_config(HI), priority=0, batch=2, seq=48,
+    hi = InferenceService(get_config(high), priority=0, batch=2, seq=48,
                           host_gap=0.002)
     lo = InferenceService(get_config(low), priority=5, batch=4, seq=48)
     with ServingSystem(Mode.FIKIT, measure_runs=MEASURE_RUNS) as sys_:
@@ -825,30 +995,40 @@ def segment_profile(torch, low):
             jcts = sys_.onboard(svc)
             prof = sys_.profiles.get(svc.key)
             model, cfg = svc.svc.model, svc.cfg
-            x = tfm.embed_tokens(model, svc.svc.make_input(), cfg)
+            batch = svc.svc.make_input()
+            state = svc.svc.segments[0].fn(batch)     # embed or encode
+            n = 4
             if cfg.family == "hybrid":
                 kinds = rglru.block_kinds(cfg)
                 blocks = {
                     "rec": lambda: rglru.rec_block_apply(
-                        model.blocks[kinds.index("rec")], x, cfg),
+                        model.blocks[kinds.index("rec")], state, cfg),
                     "attn": lambda: rglru.attn_block_apply(
-                        model.blocks[kinds.index("attn")], x, cfg)}
+                        model.blocks[kinds.index("attn")], state, cfg)}
+            elif cfg.family == "encdec":
+                frames, tokens = batch
+                blocks = {
+                    "encode": lambda: (encdec.encode(model, frames, cfg),
+                                       tfm.embed_tokens(model, tokens,
+                                                        cfg)),
+                    "dec_layer": lambda: segmentation._dec_layer(
+                        model.dec_layers[0], state, cfg)}
+                n = 1        # the encoder alone is ~1000 launches
             else:
                 fn = segmentation.layer_fn(cfg)
-                blocks = {"layer": lambda: fn(model.layers[0], x, cfg)}
+                blocks = {"layer": lambda: fn(model.layers[0], state, cfg)}
             # a block is ~100 launches: 4 of them stay inside the card's
             # launch queue, so the host never blocks behind the sleep
             with torch.inference_mode():
-                dev = {k: device_ms(torch, fn, n=4)
+                dev = {k: device_ms(torch, fn, n=n)
                        for k, fn in blocks.items()}
             rec = {"measure_jct_ms": [1e3 * j for j in jcts],
                    "SK_ms": {k.name: 1e3 * v for k, v in prof.SK.items()},
                    "SG_ms": {k.name: 1e3 * v for k, v in prof.SG.items()},
                    "block_device_ms": dev}
             log(f"  {cfg.name}: " + json.dumps(rec))
-    del hi, lo
-    gc.collect()
-    torch.cuda.empty_cache()
+    del hi, lo, state
+    free(torch)
 
 
 # ----------------------------------------------------- load and ops phases
@@ -1275,9 +1455,9 @@ def ops_recover(torch, K, db):
 INSTANCES = {
     "flash_attention": (r"flash_fwd_tcILi(\d+)ELi(\d+)E",
                         lambda t: f"D{t.group(1)} x{t.group(2)} warpgroups",
-                        "HGMMA", 8),
+                        "HGMMA", 10),
     "decode_attention": (r"decode_split_tcILi(\d+)E",
-                         lambda t: f"D{t.group(1)}", "HMMA", 3),
+                         lambda t: f"D{t.group(1)}", "HMMA", 4),
     "rglru_scan": (r"rglru_scan_splitI(f|13__nv_bfloat16)E",
                    lambda t: "fp32" if t.group(1) == "f" else "bf16",
                    None, 2),
@@ -1415,6 +1595,16 @@ def main() -> int:
                                          seed + 3)
     fl["long"] = check_flash_case(torch, K, LONG, bf16, seed + 4)
     seed += 4
+    # this slice's paths, in their own layout; D 128 at h2o's shapes
+    for case in (H2O_SHAPE, CROSS_48, CROSS_1):
+        for dtype in (f32, bf16):
+            seed += 1
+            fl[("path", case[:6], dtype)] = check_flash_case(
+                torch, K, case, dtype, seed, path_layout=True)
+    for case in [H2O_PROMPT, ENCODER, LLAVA_SHAPE] + D128_AT_H2O:
+        seed += 1
+        fl[("path", case[:6], bf16)] = check_flash_case(
+            torch, K, case, bf16, seed, path_layout=True)
 
     log("[kernels] decode_attention vs its plain version")
     dec = {}
@@ -1429,6 +1619,14 @@ def main() -> int:
                                                  seed, empty_from=100)
     dec["long"] = check_decode_case(torch, K, DEC_LONG, bf16, seed + 1)
     seed += 1
+    for case in (DEC_H2O, DEC_SEAMLESS, DEC_LLAVA):
+        for dtype in (f32, bf16):
+            seed += 1
+            dec[(case[:5], dtype)] = check_decode_case(torch, K, case, dtype,
+                                                       seed)
+    seed += 1
+    dec[(DEC_H2O_D128[:5], bf16)] = check_decode_case(
+        torch, K, DEC_H2O_D128, bf16, seed)
 
     log("[kernels] rglru_scan vs its plain version")
     rg = {}
@@ -1457,6 +1655,9 @@ def main() -> int:
     free(torch)
     hyb_model = model_check(torch, K, HYB, 4, 48, keep=True)
     free(torch)
+    for name, batch in ((H2O, 4), (SEAMLESS, 2), (LLAVA, 4)):
+        model_check(torch, K, name, batch, 48)   # pairs F and J's shapes
+        free(torch)
 
     log(f"[generate] prefill + {GEN_STEPS} decode steps, kernels vs plain "
         f"versions at every step")
@@ -1481,24 +1682,34 @@ def main() -> int:
                    hold_logits=True)
     del ssm_model
     free(torch)
+    # h2o-danube, seamless and llava at the reference init are chaotic as
+    # the hybrid is (see rescale_qk); with wq and wk at fan_in d_model
+    # they are not, and their end-to-end logits are held at every step
+    gen = {}
+    for name, batch, prompt in GENERATE_NEW:
+        gen[name] = generate_check(torch, K, name, None, batch, prompt,
+                                   hold_logits=True, rescale=True)
+        free(torch)
 
     served = {}
-    for low in LOW_SERVICES:
-        log(f"[serve] serve_pair({HI!r}, {low!r}, reduced=False, "
+    for high, low in PAIRS:
+        log(f"[serve] serve_pair({high!r}, {low!r}, reduced=False, "
             f"requests={REQUESTS}, measure_runs={MEASURE_RUNS})")
-        fikit = serve_run(torch, K, low, "fikit")
-        sharing = serve_run(torch, K, low, "sharing")
+        fikit = serve_run(torch, K, high, low, "fikit")
+        sharing = serve_run(torch, K, high, low, "sharing")
         served[low] = fikit
         log(f"  high-priority JCT: FIKIT {fikit['high_jct_ms']:.3f} ms vs "
             f"SHARING {sharing['high_jct_ms']:.3f} ms (ratio "
             f"{fikit['high_jct_ms'] / sharing['high_jct_ms']:.3f}); low: "
             f"FIKIT {fikit['low_jct_ms']:.3f} ms vs SHARING "
-            f"{sharing['low_jct_ms']:.3f} ms; fills {fikit['fills']}")
+            f"{sharing['low_jct_ms']:.3f} ms; fills {fikit['fills']}; "
+            f"peak memory FIKIT {fikit['peak_mem_bytes'] / 2**30:.1f} GiB, "
+            f"SHARING {sharing['peak_mem_bytes'] / 2**30:.1f} GiB")
 
-    for low in LOW_SERVICES:
-        log(f"[profile] {HI} + {low}, measurement phase: SK/SG per "
+    for high, low in PAIRS:
+        log(f"[profile] {high} + {low}, measurement phase: SK/SG per "
             f"segment, one block's device time")
-        segment_profile(torch, low)
+        segment_profile(torch, high, low)
 
     log(f"[load] serve_load({HI!r}, {SSM_LO!r}, reduced=False): open-loop "
         f"Poisson gold + diurnal bronze through the admission plane")
@@ -1521,14 +1732,20 @@ def main() -> int:
     ops_recover(torch, K, OPS_DB)
 
     pair_e = served[HYB]["launches"]
+
+    def flash_launches(low, case):
+        """flash launches at ``case``'s shape in the FIKIT serve_pair run
+        whose low service is ``low``."""
+        return served[low]["flash_launches_by_shape"].get(shape_key(case),
+                                                          0)
     entries = [
         kernel_entry(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:79",
-            pair_e["flash_attention"], fl[("path", HI_SHAPE[:6], bf16)],
+            flash_launches(HYB, HI_SHAPE), fl[("path", HI_SHAPE[:6], bf16)],
             "B2 H32 Kh8 S48 D128 bf16 (qwen3-4b serving, attend's "
-            "transposed views); launches: one FIKIT serve_pair run of "
-            "pair E"),
+            "transposed views); launches: at this shape, one FIKIT "
+            "serve_pair run of pair E"),
         kernel_entry(
             "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:71",
@@ -1542,7 +1759,41 @@ def main() -> int:
             pair_e["rglru_scan"], rg[RG_SERVE],
             "B4 S48 W4096 fp32 (recurrentgemma-9b serving); launches: one "
             "FIKIT serve_pair run of pair E"),
+        kernel_entry(
+            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:79",
+            flash_launches(H2O, H2O_SHAPE),
+            fl[("path", H2O_SHAPE[:6], bf16)],
+            "B4 H32 Kh8 S48 D120 bf16 (h2o-danube-3-4b serving, the D 120 "
+            "instance); launches: at this shape, one FIKIT serve_pair run "
+            "of pair F"),
+        kernel_entry(
+            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:79",
+            flash_launches(LLAVA, LLAVA_SHAPE),
+            fl[("path", LLAVA_SHAPE[:6], bf16)],
+            "B4 H32 Kh8 S2881 D128 bf16 (llava-next-mistral-7b serving); "
+            "launches: at this shape, one FIKIT serve_pair run of pair J"),
+        kernel_entry(
+            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:79",
+            flash_launches(LLAVA, CROSS_48),
+            fl[("path", CROSS_48[:6], bf16)],
+            "B2 H16 Sq48 Sk1024 D64 non-causal bf16 (seamless-m4t-medium "
+            "cross-attention, serving); launches: at this shape, one FIKIT "
+            "serve_pair run of pair J"),
+        kernel_entry(
+            "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:71",
+            gen[H2O]["launches"]["decode_attention"],
+            dec[(DEC_H2O[:5], bf16)],
+            "B2 H32 Kh8 C4096 D120 bf16 wrapped ring (h2o-danube-3-4b "
+            f"generation, the D 120 instance); launches: h2o generate, "
+            f"{GEN_STEPS} steps"),
     ]
+    unused = [e["shape"] for e in entries if e["launches"] < 1]
+    if unused:
+        raise AssertionError(f"no launch on the path at {unused}")
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -56,13 +56,12 @@ def measure(root: str) -> dict:
         cfg = get_config(name)
         model = api.build_params(cfg, seed=0, device="cuda")
         g = torch.Generator(device="cuda").manual_seed(1)
-        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
-                               dtype=torch.int32, device="cuda", generator=g)
+        inputs, start = cs.prompt_inputs(torch, cfg, batch, prompt, g)
         out[f"{name}_prefill_ms"] = statistics.median(
-            cs.prefill_times(torch, model, tokens, cfg))
+            cs.prefill_times(torch, model, inputs, cfg))
         steps = torch.randint(0, cfg.vocab_size, (cs.GEN_STEPS, batch, 1),
                               dtype=torch.int32, device="cuda", generator=g)
-        _, times, _ = cs.generate(torch, model, tokens, steps, cfg)
+        _, times, _ = cs.generate(torch, model, inputs, start, steps, cfg)
         out[f"{name}_decode_step_ms"] = statistics.median(times)
         del model
         torch.cuda.empty_cache()

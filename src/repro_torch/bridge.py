@@ -5,7 +5,8 @@ The caller converts the JAX arrays (``jax.tree.map(np.asarray, params)``);
 this module imports no JAX. Dtypes and shapes are kept: a bfloat16 array
 (numpy's ml_dtypes extension type) is reinterpreted bit for bit. The
 stacked ``layers`` subtree ([L, ...] leaves: the dense decoder's and the
-mamba2 SSM's) is split into ``layers.<i>``;
+mamba2 SSM's) is split into ``layers.<i>``, and the encoder-decoder's
+``enc_layers`` and ``dec_layers`` likewise;
 a list of per-block subtrees (the hybrid's ``blocks``) becomes
 ``blocks.<i>``.
 """
@@ -17,6 +18,10 @@ import numpy as np
 import torch
 
 
+#: subtrees whose leaves are stacked over layers ([L, ...])
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def _tensor(a: np.ndarray) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
@@ -26,7 +31,7 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     """Flatten the JAX tree to state-dict keys of the port's model
-    (``Transformer``, ``Mamba2`` or ``Hybrid``)."""
+    (``Transformer``, ``Mamba2``, ``Hybrid`` or ``EncDec``)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node) -> None:
@@ -39,10 +44,10 @@ def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
                 walk(f"{prefix}{i}.", child)
             return
         key = prefix[:-1]
-        if key.startswith("layers."):
-            rest = key[len("layers."):]
+        stack, _, rest = key.partition(".")
+        if stack in STACKED and rest:
             for i in range(node.shape[0]):
-                out[f"layers.{i}.{rest}"] = _tensor(node[i])
+                out[f"{stack}.{i}.{rest}"] = _tensor(node[i])
         else:
             out[key] = _tensor(node)
 

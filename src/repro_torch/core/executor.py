@@ -207,17 +207,25 @@ class WallClockEngine:
             out = err = None
             try:
                 out = req.payload()
-                t1 = time.perf_counter()
-                fut.set_result((out, t0, t1))
             except BaseException as e:  # pragma: no cover
-                t1 = time.perf_counter()
                 err = e
-                fut.set_exception(e)
+            t1 = time.perf_counter()
+            if self._on_kernel_complete is not None:
+                # write-ahead: the durable record commits BEFORE the
+                # Future resolves (a client blocked on it may retire its
+                # job at once, and the record would find no job) and
+                # before the boundary's scheduling side-effects
+                try:
+                    with self._lock:
+                        self._on_kernel_complete(req, t0, t1)
+                except BaseException as e:
+                    fut.set_exception(e)
+                    raise
+            if err is None:
+                fut.set_result((out, t0, t1))
+            else:
+                fut.set_exception(err)
             with self._lock:
-                if self._on_kernel_complete is not None:
-                    # write-ahead: the durable record commits BEFORE the
-                    # boundary's scheduling side-effects
-                    self._on_kernel_complete(req, t0, t1)
                 self._futures.pop(req.uid, None)   # resolved: stop pinning it
                 self._records.append(ExecRecord(req, t0, t1, filler, device))
                 if filler:

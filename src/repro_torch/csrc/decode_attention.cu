@@ -44,7 +44,12 @@
 // sum across the four lanes of a row). P is rounded to bf16 pairs in
 // place: two m16n8 C fragments are the A fragment of one m16n8k16 over
 // the 16 slots, and O += P V takes V through ldmatrix.x4.trans. Rounding
-// P is the one numerical change against the fp32 oracle. The four warps
+// P is the one numerical change against the fp32 oracle. A head dim that
+// is not a multiple of 16 (D 120, h2o-danube-3-4b) is padded to one in
+// shared memory: its rows are copied as D / 8 chunks and the padding
+// chunks zero-filled (cp.async with no source bytes), so Q K^T runs 8
+// k-steps over zeros past D and P V's n8 tiles past D are not stored;
+// the padded row keeps the 16-byte bank stagger. The four warps
 // merge their (m, l, O) through shared memory into one partial per CTA,
 // and decode_combine_kernel reduces the splits, all of its loads issued
 // at once. At short caches the two launches' latency is most of the
@@ -285,15 +290,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// A row of the bf16 kernel's tiles holds D padded to the mma's k of 16
+// (D 120: 128); the padding columns are zero in Q, K and V.
+__host__ __device__ constexpr int padded(int D) { return (D + 15) / 16 * 16; }
+
 // Shared memory of one bf16 CTA, in bytes: the Q tile, each warp's ring of
 // STAGES (K tile, V tile) pairs, their kpos, and each warp's (m, l) per
-// row. Rows are 2 D + 16 bytes: consecutive rows start 16 bytes apart
-// modulo 128, so the 8 rows an ldmatrix reads hit 8 different bank
-// groups. After the main loop the ring holds the warps' fp32 O for the
-// merge.
+// row. Rows are 2 padded(D) + 16 bytes: consecutive rows start 16 bytes
+// apart modulo 128, so the 8 rows an ldmatrix reads hit 8 different bank
+// groups (2 D + 16 would not do at D 120: 256 bytes, 0 modulo 128). After
+// the main loop the ring holds the warps' fp32 O for the merge.
 template <int D>
 struct TcLayout {
-  static constexpr int ROW = 2 * D + 16;
+  static constexpr int ROW = 2 * padded(D) + 16;
   static constexpr int TILE = TS * ROW;
   static constexpr int Q = 0;
   static constexpr int RING = Q + TH * ROW;
@@ -311,8 +320,11 @@ template <int D>
 __global__ void __launch_bounds__(NT)
 decode_split_tc(const Params p) {
   using L = TcLayout<D>;
-  constexpr int KSTEPS = D / 16;   // k steps of Q K^T
-  constexpr int CH = D / 8;        // 16-byte chunks of a row
+  constexpr int DP = padded(D);    // D 120: 128, columns 120-127 zero
+  constexpr int KSTEPS = DP / 16;  // k steps of Q K^T
+  constexpr int CH = D / 8;        // 16-byte chunks of a row in memory
+  constexpr int CHP = DP / 8;      // ... in shared memory, padding too
+  static_assert(D % 8 == 0, "rows are copied in 16-byte chunks");
   constexpr bool Q_IN_REGS = D <= 128;   // at D 256, O alone is 128 regs
   extern __shared__ __align__(128) unsigned char tc_smem[];
   unsigned char* smem = tc_smem;
@@ -349,16 +361,17 @@ decode_split_tc(const Params p) {
   const uint32_t kp_ring = smem_u32(sKp);
 
   // stage s: K tile at ring + 2 s TILE, V tile after it, kpos at
-  // kp_ring + 64 s. Slots at or past c1 are zero-filled.
+  // kp_ring + 64 s. Slots at or past c1, and the padding chunks past D,
+  // are zero-filled.
   auto load_tile = [&](int i, int s) {
     const int tc = w_c0 + i * TS;
     const uint32_t kdst = ring + s * 2 * L::TILE;
     const uint32_t vdst = kdst + L::TILE;
 #pragma unroll
-    for (int j = 0; j < TS * CH / 32; ++j) {
+    for (int j = 0; j < TS * CHP / 32; ++j) {
       const int idx = j * 32 + lane;
-      const int r = idx / CH, ch = idx - r * CH;
-      const bool in = tc + r < c1;
+      const int r = idx / CHP, ch = idx - r * CHP;
+      const bool in = tc + r < c1 && ch < CH;
       const int64_t c = in ? tc + r : 0;
       const uint32_t off = r * L::ROW + ch * 16;
       cp_async16(kdst + off, kb + c * p.k_sc + ch * 8, in ? 16 : 0);
@@ -378,17 +391,17 @@ decode_split_tc(const Params p) {
   }
 
   // Q tile, while the first tiles are in flight: rows past the group's
-  // heads are zero
+  // heads and columns past D are zero
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16 qv[TH * D / NT];
+  bf16 qv[TH * DP / NT];
 #pragma unroll
-  for (int j = 0; j < TH * D / NT; ++j) {
-    const int i = j * NT + tid, r = i / D, d = i - r * D;
-    qv[j] = r < rows ? qb[r * p.q_sh + d] : __float2bfloat16(0.f);
+  for (int j = 0; j < TH * DP / NT; ++j) {
+    const int i = j * NT + tid, r = i / DP, d = i - r * DP;
+    qv[j] = r < rows && d < D ? qb[r * p.q_sh + d] : __float2bfloat16(0.f);
   }
 #pragma unroll
-  for (int j = 0; j < TH * D / NT; ++j) {
-    const int i = j * NT + tid, r = i / D, d = i - r * D;
+  for (int j = 0; j < TH * DP / NT; ++j) {
+    const int i = j * NT + tid, r = i / DP, d = i - r * DP;
     sQ[r * (L::ROW / 2) + d] = qv[j];
   }
   __syncthreads();                         // the Q tile is in
@@ -407,9 +420,9 @@ decode_split_tc(const Params p) {
   }
 
   const float scale2 = p.scale * LOG2E;
-  float o[D / 8][4];
+  float o[DP / 8][4];              // n8 tiles past D are never stored
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < DP / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = NEG, m1 = NEG;                // rows g and g + 8, log2 units
   float l0 = 0.f, l1 = 0.f;                // this lane's share of the sums
 
@@ -483,14 +496,14 @@ decode_split_tc(const Params p) {
       pa[2 * n + 1] = pack_bf16(p2, p3);   // row g + 8
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DP / 8; ++n) {
       o[n][0] *= al0; o[n][1] *= al0;
       o[n][2] *= al1; o[n][3] *= al1;
     }
 
     // O += P V: V^T fragments through ldmatrix.trans, two n8 tiles each
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
+    for (int j = 0; j < DP / 16; ++j) {
       uint32_t b0, b1, b2, b3;
       ldsm_x4_t(kt + v_off + j * 32, b0, b1, b2, b3);
       mma_bf16(o[2 * j], pa, b0, b1);
@@ -708,6 +721,7 @@ template <typename T>
 cudaError_t launch_d(const Params& p, cudaStream_t stream) {
   switch (p.D) {
     case 64: return launch<T, 64>(p, stream);
+    case 120: return launch<T, 120>(p, stream);
     case 128: return launch<T, 128>(p, stream);
     case 256: return launch<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;
@@ -718,6 +732,7 @@ template <typename T>
 long long smem_d(int D, int G) {
   switch (D) {
     case 64: return split_smem_bytes<T, 64>(G);
+    case 120: return split_smem_bytes<T, 120>(G);
     case 128: return split_smem_bytes<T, 128>(G);
     case 256: return split_smem_bytes<T, 256>(G);
     default: return -1;

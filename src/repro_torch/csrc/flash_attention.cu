@@ -38,9 +38,12 @@
 //   __grid_constant__. Boxes are 64 columns wide (128 bytes, the 128-byte
 //   swizzle wgmma reads): 64 rows of Q, a kv tile's rows of K and V (128
 //   keys for D <= 128, 64 at D 256, where a 128-key tile's scores would
-//   not fit in registers beside the 64 x 256 accumulator); a 96- or
-//   256-wide head is 2 or 4 boxes, and TMA's zero fill covers ragged
-//   Sq / Sk and columns 96-127 of D 96. The Q tiles load once; K and V go
+//   not fit in registers beside the 64 x 256 accumulator); a 96-, 120-
+//   or 256-wide head is 2, 2 or 4 boxes, and TMA's zero fill covers
+//   ragged Sq / Sk and columns 96-127 of D 96 and 120-127 of D 120 (the
+//   maps' D extent is D itself, so the store clips them too). The zero
+//   columns add nothing to Q K^T, and P V's columns past D are never
+//   stored. The Q tiles load once; K and V go
 //   through a 2-stage ring with a full and an empty mbarrier per stage, so
 //   tile j + 1 is in flight while tile j is consumed. Thread 0 starts
 //   every copy.
@@ -799,6 +802,7 @@ cudaError_t launch_f32(const Params& p, int D, cudaStream_t stream) {
   switch (D) {
     case 64: return launch<float, 64>(p, stream);
     case 96: return launch<float, 96>(p, stream);
+    case 120: return launch<float, 120>(p, stream);
     case 128: return launch<float, 128>(p, stream);
     case 256: return launch<float, 256>(p, stream);
     default: return cudaErrorInvalidValue;
@@ -810,6 +814,7 @@ cudaError_t launch_bf16(const Params& p, int D, int warpgroups,
   switch (D) {
     case 64: return tc::launch_wg<64>(p, warpgroups, stream);
     case 96: return tc::launch_wg<96>(p, warpgroups, stream);
+    case 120: return tc::launch_wg<120>(p, warpgroups, stream);
     case 128: return tc::launch_wg<128>(p, warpgroups, stream);
     case 256: return tc::launch_wg<256>(p, warpgroups, stream);
     default: return cudaErrorInvalidValue;

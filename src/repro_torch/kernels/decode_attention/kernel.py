@@ -17,7 +17,7 @@ from repro_torch.kernels import _build, _layout
 
 #: the kernel's instances: head dims, input types, most query heads per
 #: kv head
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 120, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 64
 #: the bf16 kernel's geometry (``csrc/decode_attention.cu``): cache slots
@@ -56,12 +56,20 @@ def library() -> ctypes.CDLL:
     return _build.load("decode_attention", _SIGNATURES)
 
 
+def padded(D: int) -> int:
+    """The head dim a bf16 tile row holds: D rounded up to the mma's k of
+    16 (D 120: 128, the padding zero)."""
+    return -(-D // 16) * 16
+
+
 def smem_bytes(D: int) -> int:
     """Dynamic shared memory of one bf16 CTA (the kernel's ``TcLayout``):
-    the Q tile, each warp's ring of (K, V) tiles with rows padded by 16
-    bytes, their kpos, and each warp's (m, l) per row."""
-    tile = TILE * (2 * D + 16)
-    return (HEAD_TILE * (2 * D + 16) + WARPS * STAGES * 2 * tile
+    the Q tile, each warp's ring of (K, V) tiles with rows of
+    ``padded(D)`` columns and 16 bytes more, their kpos, and each warp's
+    (m, l) per row."""
+    row = 2 * padded(D) + 16
+    tile = TILE * row
+    return (HEAD_TILE * row + WARPS * STAGES * 2 * tile
             + WARPS * STAGES * TILE * 4 + 2 * WARPS * HEAD_TILE * 4)
 
 
@@ -101,7 +109,7 @@ def split_plan(groups: int, G: int, C: int, D: int, sms: int) -> Plan:
     smem = smem_bytes(D)
     per_sm = max(1, SM_SMEM // (smem + 1024))
     wave = max(1, sms * per_sm // rows)
-    every_warp = -(-tiles // WARPS)
+    every_warp = max(1, tiles // WARPS)
     partial_cap = max(1, C // (PARTIAL_SHARE * G))
     want = min(wave, every_warp, partial_cap)
     split_len = TILE * -(-tiles // want)

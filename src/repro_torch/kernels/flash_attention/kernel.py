@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import _build, _layout
 
 #: the kernel's instances: head dims and input types
-HEAD_DIMS = (64, 96, 128, 256)
+HEAD_DIMS = (64, 96, 120, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: streaming multiprocessors of an H100 SXM, which ``warpgroups`` fills

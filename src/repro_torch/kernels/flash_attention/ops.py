@@ -3,10 +3,13 @@
 A CUDA tensor launches the Hopper kernel (or raises); a tensor on the CPU
 goes to the plain version, ``ref.flash_attention_ref``. There is no
 fallback from one to the other. ``flash_attention.launches`` counts the
-kernel's launches, so a run can show that its path went through it.
+kernel's launches, so a run can show that its path went through it, and
+``flash_attention.launches_by_shape`` counts them per (B, H, Kh, Sq, Sk,
+D), so a run that launches several shapes can tell them apart.
 """
 from __future__ import annotations
 
+import collections
 import threading
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
@@ -25,7 +28,10 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
                                  chunk=chunk, scale=scale)
     with _count_lock:
         flash_attention.launches += 1
+        (B, H, Sq, D), (Kh, Sk) = q.shape, k.shape[1:3]
+        flash_attention.launches_by_shape[(B, H, Kh, Sq, Sk, D)] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_shape = collections.Counter()

@@ -25,20 +25,32 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, Sq, H, Dh]; k/v: [B, Sk, Kh, Dh]; qpos: [Sq]; kpos: [Sk].
     Returns [B, Sq, H, Dh].
 
-    The kernel derives positions from indices, so ``qpos``/``kpos`` must
-    be the prefill positions 0..S-1 (as every caller in this package
-    passes; decode goes through ``decode_attend``); only their lengths
-    are checked, which needs no device sync. On a CUDA device the
+    The kernel derives positions from indices, so its contract is:
+    ``qpos``/``kpos`` are the positions 0..S-1 of a full sequence, or
+    they do not enter the mask. Every caller in this package passes one
+    of the two: self-attention over ``arange(S)`` (the dense decoder, the
+    VLM's patches and tokens, the encoder and the decoder of the
+    encoder-decoder), or cross-attention (Sq != Sk), which is non-causal
+    with no window or chunk, so that every query sees every key whatever
+    the positions. Only the lengths are checked, and a mask that would
+    read positions with Sq != Sk raises; neither needs a device sync.
+    Decode goes through ``decode_attend``. On a CUDA device the
     projections reach the kernel as transposed views and its output comes
     back in [B, Sq, H, Dh] order, so nothing is copied on the way. A row
     with every key masked gives mean(v), the kernel's oracle's answer,
-    where the JAX model path gives zeros; causal prefill never has such a
-    row.
+    where the JAX model path gives zeros; causal self-attention and
+    cross-attention never have such a row.
     """
     if qpos.shape[-1] != q.shape[1] or kpos.shape[-1] != k.shape[1]:
         raise ValueError(f"positions {tuple(qpos.shape)}/{tuple(kpos.shape)}"
                          f" do not match q {tuple(q.shape)} / k "
                          f"{tuple(k.shape)}")
+    if q.shape[1] != k.shape[1] and (causal or window is not None
+                                     or chunk is not None):
+        raise ValueError(f"attend: Sq {q.shape[1]} != Sk {k.shape[1]} takes "
+                         f"only cross-attention (causal=False, no window or "
+                         f"chunk); got causal={causal}, window={window}, "
+                         f"chunk={chunk}")
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window, chunk=chunk, scale=scale)

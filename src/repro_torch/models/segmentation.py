@@ -4,9 +4,15 @@
 A service's inference = [embed] + [layer]*L + [head]. The layer segment is
 ONE callable reused for every layer (the layer's module is bound per
 segment), so all L dispatches share a KernelID, as in the paper's Fig 5:
-a dense decoder layer, or a mamba2 SSD mixer layer for the SSM family.
-The hybrid (recurrentgemma) has one ``rec`` and one ``attn`` segment kind
-instead of ``layer``, in its block pattern's order.
+a dense decoder layer (also the VLM's), or a mamba2 SSD mixer layer for
+the SSM family. The hybrid (recurrentgemma) has one ``rec`` and one
+``attn`` segment kind instead of ``layer``, in its block pattern's order.
+The encoder-decoder (seamless-m4t) runs ``encode`` (the token embedding
+and the whole encoder; its state is the tuple (encoder output, decoder
+activations)), one ``dec_layer`` per decoder layer, and ``head``. The
+VLM's ``embed`` takes the (patches, tokens) batch and builds the stub
+patches inside the segment, as the JAX package's embed segment means to
+(its own reads ``.shape`` of the tuple and fails).
 
 Host work (sampling) runs client-side between segments — the origin of
 inter-kernel device idle gaps. Each segment body runs under
@@ -23,22 +29,33 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch.config import HYBRID, SSM, ModelConfig
+from repro_torch.config import ENCDEC, HYBRID, SSM, VLM, ModelConfig
 from repro_torch.core.client import Segment
-from repro_torch.models import api, mamba2, rglru
+from repro_torch.models import api, encdec, mamba2, rglru, vlm
 from repro_torch.models import transformer as tfm
 
 
-def _sync(x: torch.Tensor) -> torch.Tensor:
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
-    return x
+def _sync(state):
+    """Wait for the card to finish ``state`` (a tensor, or a tuple of
+    tensors on one device)."""
+    t = state[0] if isinstance(state, tuple) else state
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return state
 
 
 def _dense_layer(lp: tfm.DecoderLayer, x, cfg: ModelConfig):
     return tfm.layer_apply(lp, x, tfm.positions_for(x), cfg,
                            window=cfg.sliding_window,
                            chunk=cfg.attention_chunk)
+
+
+def _dec_layer(lp: encdec.DecoderLayer, state, cfg: ModelConfig):
+    """One encoder-decoder decoder layer over the state (encoder output,
+    decoder activations)."""
+    enc_out, x = state
+    return enc_out, encdec._dec_layer(lp, x, tfm.positions_for(x), enc_out,
+                                      cfg)
 
 
 def layer_fn(cfg: ModelConfig) -> Callable:
@@ -65,7 +82,8 @@ class SegmentedService:
     """
 
     def __init__(self, cfg: ModelConfig,
-                 model: Union[tfm.Transformer, mamba2.Mamba2, rglru.Hybrid],
+                 model: Union[tfm.Transformer, mamba2.Mamba2, rglru.Hybrid,
+                              encdec.EncDec],
                  batch: int, seq: int, host_gap: float = 0.0,
                  tail_gap: float = 0.0):
         self.cfg = cfg
@@ -77,6 +95,8 @@ class SegmentedService:
         self.tail_gap = tail_gap
         if cfg.family == HYBRID:
             self._build_hybrid()
+        elif cfg.family == ENCDEC:
+            self._build_encdec()
         else:
             self._build_decoder_lm()
 
@@ -85,17 +105,27 @@ class SegmentedService:
         layouts."""
         cfg, model = self.cfg, self.model
 
-        def embed(tokens):
+        def embed(batch):
             with torch.inference_mode():
-                return _sync(tfm.embed_tokens(model, tokens, cfg))
+                if cfg.family != VLM:
+                    return _sync(tfm.embed_tokens(model, batch, cfg))
+                tokens = batch[1]
+                patches = vlm.stub_patches(cfg, tokens.shape[0],
+                                           device=tokens.device)
+                return _sync(tfm.embed_tokens(model, tokens, cfg, patches))
 
-        def head(x):
+        return Segment(f"{cfg.name}/embed", embed), self._head(lambda x: x)
+
+    def _head(self, activations: Callable) -> Segment:
+        """The head segment: the logits of ``activations(state)``."""
+        cfg, model = self.cfg, self.model
+
+        def head(state):
             with torch.inference_mode():
-                return _sync(tfm.unembed(model, x, cfg))
+                return _sync(tfm.unembed(model, activations(state), cfg))
 
-        return (Segment(f"{cfg.name}/embed", embed),
-                Segment(f"{cfg.name}/head", head,
-                        host_work=self._sample_work()))
+        return Segment(f"{cfg.name}/head", head,
+                       host_work=self._sample_work())
 
     def _build_decoder_lm(self):
         cfg = self.cfg
@@ -119,6 +149,23 @@ class SegmentedService:
                 f"{cfg.name}/{kind}", partial(self._run_block, fn, lp, cfg),
                 host_work=_sleep_work(self.host_gap)))
         self.segments = segs + [head]
+
+    def _build_encdec(self):
+        cfg, model = self.cfg, self.model
+
+        def encode(batch):
+            frames, tokens = batch
+            with torch.inference_mode():
+                return _sync((encdec.encode(model, frames, cfg),
+                              tfm.embed_tokens(model, tokens, cfg)))
+
+        segs = [Segment(f"{cfg.name}/encode", encode)]
+        for lp in model.dec_layers:
+            segs.append(Segment(
+                f"{cfg.name}/dec_layer",
+                partial(self._run_block, _dec_layer, lp, cfg),
+                host_work=_sleep_work(self.host_gap)))
+        self.segments = segs + [self._head(lambda state: state[1])]
 
     @staticmethod
     def _run_block(fn, lp, cfg: ModelConfig, x):

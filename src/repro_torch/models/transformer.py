@@ -1,7 +1,8 @@
 """Dense decoder-only transformer LM (GQA / MQA / qk_norm / partial rotary /
 sliding-window / chunked attention): ``repro.models.transformer`` as
 PyTorch modules, with full-sequence forward, prefill and one-token decode.
-Also provides the attention sublayer the hybrid model uses.
+Also provides the attention sublayer the hybrid and the encoder-decoder
+use, and the decoder that the VLM runs over its patches and tokens.
 
 Parameters keep the JAX shapes and names (``wq`` [D, H, Dh], ``wo``
 [H, Dh, D], ...), and the state-dict key of a parameter is its JAX tree
@@ -15,7 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.config import DENSE, ModelConfig
+from repro_torch.config import DENSE, VLM, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, Maker, apply_rope, mlp_apply,
                                        rms_norm, torch_dtype)
@@ -70,11 +71,22 @@ def _out_proj(p: Attention, out):
 
 def attn_apply_full(p: Attention, h, positions, cfg: ModelConfig, *,
                     window: Optional[int] = None,
-                    chunk: Optional[int] = None, return_kv: bool = False):
-    """Full-sequence causal self-attention sublayer; with ``return_kv``
-    also its k and v [B, S, Kh, Dh] (for the decode cache)."""
-    q, k, v = _qkv(p, h, positions, cfg)
-    out = attn.attend(q, k, v, positions, positions, window=window,
+                    chunk: Optional[int] = None, causal: bool = True,
+                    kv=None, return_kv: bool = False):
+    """Full-sequence self-attention sublayer (causal unless ``causal`` is
+    false), or cross-attention with ``kv=(k, v, kpos)``: then q alone is
+    projected and q-normed, not roped, and k [B, Sk, Kh, Dh] and v are
+    used as given. With ``return_kv`` also its k and v (for the decode
+    cache)."""
+    if kv is None:
+        q, k, v = _qkv(p, h, positions, cfg)
+        kpos = positions
+    else:
+        q = _project(h, p.wq)
+        if cfg.qk_norm:
+            q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k, v, kpos = kv
+    out = attn.attend(q, k, v, positions, kpos, causal=causal, window=window,
                       chunk=chunk)
     y = _out_proj(p, out)
     if return_kv:
@@ -163,11 +175,11 @@ def layer_decode(lp: DecoderLayer, x, cache, pos: int, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 class Transformer(nn.Module):
     """embed [V, D], layers.<i>, final_norm [D], lm_head [D, V] (absent
-    with tied embeddings)."""
+    with tied embeddings). The VLM's backbone is this decoder too."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, device="cuda"):
         super().__init__()
-        if cfg.family != DENSE:
+        if cfg.family not in (DENSE, VLM):
             raise ValueError(f"{cfg.name} is not a dense decoder")
         self.cfg = cfg
         make = Maker(seed, torch_dtype(cfg.dtype), device)
@@ -188,8 +200,14 @@ def build_params(cfg: ModelConfig, seed: int = 0,
     return Transformer(cfg, seed, device)
 
 
-def embed_tokens(model: Transformer, tokens, cfg: ModelConfig):
-    return model.embed[tokens]
+def embed_tokens(model: Transformer, tokens, cfg: ModelConfig,
+                 extra_embeds=None):
+    """Token embeddings [B, S, D]; ``extra_embeds`` [B, P, D] (the VLM's
+    patches) are prepended in the embeddings' dtype."""
+    x = model.embed[tokens]
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def unembed(model: Transformer, x, cfg: ModelConfig):
@@ -204,9 +222,10 @@ def positions_for(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
 
-def forward(model: Transformer, tokens, cfg: ModelConfig):
-    """tokens: [B, S] int32 -> logits [B, S, V]."""
-    x = embed_tokens(model, tokens, cfg)
+def forward(model: Transformer, tokens, cfg: ModelConfig,
+            extra_embeds=None):
+    """tokens: [B, S_text] int32 -> logits [B, S_total, V]."""
+    x = embed_tokens(model, tokens, cfg, extra_embeds)
     positions = positions_for(x)
     for lp in model.layers:
         x = layer_apply(lp, x, positions, cfg, window=cfg.sliding_window,
@@ -215,9 +234,9 @@ def forward(model: Transformer, tokens, cfg: ModelConfig):
 
 
 def prefill(model: Transformer, tokens, cfg: ModelConfig,
-            extra_capacity: int = 0):
+            extra_embeds=None, extra_capacity: int = 0):
     """Returns (last-position logits [B, 1, V], one cache per layer)."""
-    x = embed_tokens(model, tokens, cfg)
+    x = embed_tokens(model, tokens, cfg, extra_embeds)
     positions = positions_for(x)
     capacity = attn.cache_capacity(x.shape[1] + extra_capacity,
                                    cfg.sliding_window, cfg.attention_chunk)

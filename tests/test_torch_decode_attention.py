@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.decode_attention import ops  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
     HEAD_TILE, SMEM_LIMIT, TILE, check_async_layout, decode_attention_kernel,
-    split_plan,
+    padded, smem_bytes, split_plan,
 )
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref,
@@ -52,8 +52,19 @@ EDGE_CASES = [
     (2, 32, 8, 1040, 128, dict(window=20), 1030),
     (1, 16, 1, 1000, 256, dict(window=0), 500),
 ]
+# h2o-danube-3-4b: head dim 120, its rows padded to 128 in shared memory,
+# on its wrapped 4096-slot ring past the window, and C off the tile
+D120_CASES = [
+    (2, 32, 8, 4096, 120, dict(window=4096), 4175),
+    (1, 8, 2, 1000, 120, {}, 990),
+]
+D120_INTERPRET = (1, 8, 2, 256, 120, {}, 200)
 # the decode paths' shapes: (B * Kh, G, C, D)
 PATH_PLANS = [(16, 4, 1040, 128), (2, 16, 2048, 256), (8, 4, 32768, 128)]
+# this slice's: h2o's ring (B2 Kh8, C 4096, D 120), seamless's
+# self-attention (B2 Kh16 G1, a 64-token prompt + 16 steps, D 64) and
+# llava's (B2 Kh8, 2880 patches + 64 tokens + 16 steps, D 128)
+NEW_PATH_PLANS = [(16, 4, 4096, 120), (32, 1, 80, 64), (16, 4, 2960, 128)]
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # bf16, per element, over the plain output's size (P is rounded to bf16
@@ -134,7 +145,25 @@ def test_ref_matches_jax_ref(case, dtype, jax_decode):
     assert np.max(np.abs(_f32(out) - _f32(want))) < TOL[dtype]
 
 
-@pytest.mark.parametrize("case", DECODE_CASES[:2], ids=_case_id)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", D120_CASES, ids=_case_id)
+def test_d120_matches_jax_ref(case, dtype, jax_decode):
+    """Head dim 120 through the port's wrapper on the CPU, against the
+    JAX oracle, on the wrapped ring and a ragged C."""
+    import jax.numpy as jnp
+    _, jref = jax_decode
+    arrays = _numpy_inputs(case)
+    kpos = _kpos(case)
+    kw, pos = case[5], case[6]
+    out = ops.decode_attention(*_torch(arrays, dtype),
+                               torch.from_numpy(kpos), pos, **kw)
+    want = jref(*_jax(arrays, dtype), jnp.asarray(kpos), pos, **kw)
+    assert out.dtype == dtype and tuple(out.shape) == want.shape
+    assert np.max(np.abs(_f32(out) - _f32(want))) < TOL[dtype]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES[:2] + [D120_INTERPRET],
+                         ids=_case_id)
 def test_ref_matches_pallas_interpret(case, jax_decode):
     """Against the Pallas kernel body itself, run by the interpreter as
     tests/test_kernels.py runs it (fp32 only: interpreting is slow)."""
@@ -233,6 +262,28 @@ def test_split_plan_at_path_shapes(shape, G):
     assert 1 <= plan.ctas_per_sm and plan.ctas <= 132 * plan.ctas_per_sm
 
 
+@pytest.mark.parametrize("shape", NEW_PATH_PLANS, ids=str)
+def test_split_plan_at_this_slices_paths(shape):
+    """h2o's, seamless's and llava's caches: covered by whole tiles,
+    every warp with a tile or one split, the partials within bound and a
+    CTA's shared memory within the card's."""
+    plan = split_plan(*shape, 132)
+    groups, G, C, D = shape
+    assert (plan.splits - 1) * plan.split_len < C <= plan.splits * plan.split_len
+    assert plan.split_len >= 4 * TILE or plan.splits == 1
+    assert plan.partial_bytes <= plan.partial_limit
+    assert plan.smem_bytes <= SMEM_LIMIT
+
+
+def test_d120_rows_are_padded_to_128():
+    """The bf16 kernel pads a D 120 row to 128 columns (8 k-steps of 16)
+    plus 16 bytes: 272 bytes, 16 modulo 128, so an ldmatrix's 8 rows hit
+    8 bank groups; its shared memory is D 128's."""
+    assert padded(120) == 128 and padded(64) == 64
+    assert (2 * padded(120) + 16) % 128 == 16
+    assert smem_bytes(120) == smem_bytes(128)
+
+
 def test_split_plan_at_the_decode_paths():
     """The plans chip_smoke.py prints: qwen3-4b's cache in 13 splits of 80
     slots at two CTAs an SM; recurrentgemma-9b's in 32 of 64 (the
@@ -317,6 +368,28 @@ def test_kernel_matches_ref_on_card(case, dtype, cuda):
         G = q.shape[1] // k.shape[1]
         mean_v = v.float().mean(dim=2).repeat_interleave(G, dim=1)
         assert float((out.float() - mean_v).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", D120_CASES, ids=_case_id)
+def test_d120_on_card(case, dtype, cuda):
+    """The D 120 instances on the model's [B, C, Kh, D] cache layout
+    (h2o-danube-3-4b), held to the plain version as the other cases."""
+    B, H, Kh, C, D, kw, pos = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, C, Kh, D, generator=g, device=cuda).to(dtype)
+            .transpose(1, 2) for _ in range(2))
+    kpos = torch.from_numpy(_kpos(case)).to(cuda)
+    before = ops.decode_attention.launches
+    out = ops.decode_attention(q, k, v, kpos, pos, **kw)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    want = decode_attention_ref(q, k, v, kpos, pos, **kw)
+    assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
+    if dtype == torch.bfloat16:
+        assert _scaled_err(out, want) < SCALED_TOL
 
 
 @pytest.mark.cuda

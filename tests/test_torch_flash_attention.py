@@ -77,6 +77,32 @@ EDGE_CASES = [
     (1, 32, 8, 640, 640, 128, {}),
     (1, 32, 8, 530, 530, 64, dict(window=100)),
 ]
+# h2o-danube-3-4b: head dim 120 (two 64-column boxes, columns 120-127
+# zero-filled) at its serving shape (B4 H32 Kh8 S48), a window border
+# inside a kv tile, and S off the tile grid; its 4160-token prompt past
+# the 4096 window is for the card only
+D120_CASES = [
+    (4, 32, 8, 48, 48, 120, {}),
+    (1, 8, 2, 256, 256, 120, dict(window=96)),
+    (1, 4, 1, 200, 200, 120, {}),
+]
+D120_PROMPT = (2, 32, 8, 4160, 4160, 120, dict(window=4096))
+# seamless-m4t-medium's cross-attention: non-causal, Sq != Sk, decoder
+# rows (48 when serving, 1 at each decode step) over its 1024 frames; its
+# encoder's non-causal self-attention and llava-next's 2881-token causal
+# sequence (off every tile grid) are for the card only
+CROSS_CASES = [
+    (2, 16, 16, 48, 1024, 64, dict(causal=False)),
+    (2, 16, 16, 1, 1024, 64, dict(causal=False)),
+]
+ENCODER_CASE = (2, 16, 16, 1024, 1024, 64, dict(causal=False))
+LLAVA_CASE = (4, 32, 8, 2881, 2881, 128, dict(window=4096))
+# small enough for the Pallas interpreter: D 120 and cross-shaped rows
+INTERPRET_CASES = [
+    (1, 8, 2, 256, 256, 120, dict(window=96)),
+    (1, 4, 4, 48, 256, 64, dict(causal=False)),
+    (1, 4, 4, 1, 256, 64, dict(causal=False)),
+]
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SCALED_TOL = 2 ** -6        # bf16, per element, relative to want's size
@@ -168,7 +194,22 @@ def test_head_dim_256_matches_jax_ref(case, dtype, jax_flash):
     assert np.max(np.abs(_f32(out) - _f32(want))) < TOL[dtype]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES[:2], ids=_case_id)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", D120_CASES + CROSS_CASES, ids=_case_id)
+def test_d120_and_cross_match_jax_ref(case, dtype, jax_flash):
+    """h2o's head dim 120 and seamless's cross-attention (Sq != Sk, no
+    mask) through the port's wrapper on the CPU, against the JAX
+    oracle."""
+    _, jref = jax_flash
+    arrays = _numpy_inputs(case)
+    out = ops.flash_attention(*_torch(arrays, dtype), **case[6])
+    want = jref(*_jax(arrays, dtype), **case[6])
+    assert out.dtype == dtype and tuple(out.shape) == want.shape
+    assert np.max(np.abs(_f32(out) - _f32(want))) < TOL[dtype]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:2] + INTERPRET_CASES,
+                         ids=_case_id)
 def test_ref_matches_pallas_interpret(case, jax_flash):
     """Against the Pallas kernel body itself, run by the interpreter as
     tests/test_kernels.py runs it (fp32 only: interpreting is slow)."""
@@ -209,8 +250,10 @@ def test_cpu_tensors_go_to_the_plain_version():
     arrays = _numpy_inputs(RAGGED_CASE)
     q, k, v = _torch(arrays, torch.float32)
     before = ops.flash_attention.launches
+    shapes = dict(ops.flash_attention.launches_by_shape)
     out = ops.flash_attention(q, k, v, window=16)
     assert ops.flash_attention.launches == before
+    assert ops.flash_attention.launches_by_shape == shapes
     torch.testing.assert_close(out, flash_attention_ref(q, k, v, window=16),
                                rtol=0, atol=0)
 
@@ -227,6 +270,12 @@ PATH_WARPGROUPS = [
     ((1, 32, 4096), 2),           # long: 1024
     ((1, 32, 640), 2),            # EDGE_CASES: 160 CTAs of 128 rows
     ((1, 4, 320), 1),             # EDGE_CASES: 12 would leave SMs idle
+    ((4, 32, 48), 1),             # h2o-danube-3-4b serving (D 120)
+    ((2, 32, 4160), 2),           # h2o-danube-3-4b prompt: 2112
+    ((2, 16, 48), 1),             # seamless decoder and cross, serving
+    ((2, 16, 1), 1),              # seamless cross at a decode step
+    ((2, 16, 1024), 2),           # seamless encoder: 256
+    ((4, 32, 2881), 2),           # llava-next serving: 2944
 ]
 
 
@@ -245,7 +294,8 @@ def test_launch_plan_at_path_shapes(args, wg):
 PATH_LAYOUTS = [(2, 48, 32, 128), (2, 48, 8, 128), (4, 48, 32, 64),
                 (4, 48, 16, 256), (4, 48, 1, 256), (4, 48, 48, 128),
                 (4, 48, 1, 128), (2, 2100, 16, 256), (1, 4096, 32, 128),
-                (1, 200, 4, 96)]
+                (1, 200, 4, 96), (4, 48, 32, 120), (4, 48, 8, 120),
+                (2, 1024, 16, 64), (4, 2881, 8, 128)]
 
 
 @pytest.mark.parametrize("shape", PATH_LAYOUTS, ids=str)
@@ -287,9 +337,11 @@ def test_kernel_refuses_cpu_tensors():
 def test_kernel_matches_ref_on_card(case, dtype, cuda):
     q, k, v = _torch(_numpy_inputs(case), dtype, cuda)
     before = ops.flash_attention.launches
+    at_shape = ops.flash_attention.launches_by_shape[case[:6]]
     out = ops.flash_attention(q, k, v, **case[6])
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
+    assert ops.flash_attention.launches_by_shape[case[:6]] == at_shape + 1
     want = flash_attention_ref(q, k, v, **case[6])
     assert out.dtype == dtype and out.shape == want.shape
     _hold(out, want, dtype)
@@ -315,9 +367,30 @@ def test_kernel_takes_transposed_projections(case, dtype, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize(
+    "case", D120_CASES + CROSS_CASES + [D120_PROMPT, ENCODER_CASE,
+                                        LLAVA_CASE], ids=_case_id)
+def test_d120_and_cross_on_card(case, dtype, cuda):
+    """The D 120 instances (h2o-danube-3-4b) and the cross-attention,
+    encoder and llava shapes of this slice's paths, on attend's
+    transposed [B, S, heads, D] views."""
+    B, H, Kh, Sq, Sk, D, kw = case
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device=cuda)
+               .to(dtype).transpose(1, 2)
+               for S, n in ((Sq, H), (Sk, Kh), (Sk, Kh)))
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    _hold(out, flash_attention_ref(q, k, v, **kw), dtype)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_unsupported_head_dim(cuda):
-    """Head dims the kernel has no instance of raise (64, 96, 128 and
-    256 have one)."""
+    """Head dims the kernel has no instance of raise (64, 96, 120, 128
+    and 256 have one)."""
     q = torch.zeros(1, 2, 16, 80, device=cuda)
     with pytest.raises(ValueError, match="head dim 80"):
         ops.flash_attention(q, q, q)

@@ -290,4 +290,4 @@ def test_other_families_name_their_slice():
     with pytest.raises(NotImplementedError, match="MoE/MLA slice"):
         api.build_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        api.make_batch(cfg.replace(family="encdec"), 1, 8, device="cpu")
+        api.make_batch(cfg, 1, 8, device="cpu")

@@ -97,6 +97,34 @@ def test_fikit_sharing_completes_with_deadlines(services):
         assert sys_.deadlines_tagged == 4 and sys_.deadline_misses == 0
 
 
+def test_every_served_kernel_has_its_write_ahead_record(services,
+                                                         monkeypatch):
+    """With the ops plane's store, each finished invocation's job holds a
+    completion record for every one of its kernels, the last one too, even
+    when the device thread is slow to go on after resolving a kernel's
+    Future (the client may retire the job in that time)."""
+    import time
+    from concurrent.futures import Future
+
+    from repro_torch.core import executor
+    from repro_torch.core import jobstore as js
+
+    class SlowFuture(Future):
+        def set_result(self, result):
+            super().set_result(result)
+            time.sleep(0.02)
+    monkeypatch.setattr(executor, "Future", SlowFuture)
+    hi, _ = services
+    store = js.JobStore.memory()
+    with ServingSystem(Mode.FIKIT, measure_runs=2, jobstore=store) as sys_:
+        sys_.onboard(hi)
+        assert len(sys_.invoke(hi, n=3)) == 3
+    jobs = store.jobs()
+    assert len(jobs) == 3
+    n = len(hi.svc.segments)
+    assert all(j.state == js.DONE and j.completed == n for j in jobs)
+
+
 def test_invoke_outside_start_raises(services):
     hi, _ = services
     sys_ = ServingSystem(Mode.FIKIT)
@@ -248,6 +276,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         "repro_torch.launch.serve, repro_torch.bridge, "
         "repro_torch.models.rglru, repro_torch.models.mamba2, "
         "repro_torch.configs.mamba2_2_7b, repro_torch.configs.granite_20b, "
+        "repro_torch.models.encdec, repro_torch.models.vlm, "
+        "repro_torch.configs.seamless_m4t_medium, "
+        "repro_torch.configs.llava_next_mistral_7b, "
+        "repro_torch.configs.h2o_danube_3_4b, "
         "repro_torch.kernels.rglru_scan.ops, "
         "repro_torch.kernels.decode_attention.ops, "
         "repro_torch.kernels.flash_attention.ops, "

@@ -13,7 +13,11 @@ Phases, each of which exits non-zero on failure:
    HGMMA (wgmma) and every bf16 instance of the decode kernel (64, 120,
    128, 256) HMMA (mma.sync) in ``cuobjdump -sass``, and none of them,
    nor either instance of the rglru_scan kernel (fp32, bf16; no tensor
-   cores), may spill in ptxas's report;
+   cores), may spill in ptxas's report; the two backward sources
+   (``flash_attention_bwd.cu``: 3 passes x 5 head dims x 2 types;
+   ``rglru_scan_bwd.cu``: 2 types) are built with them, and each
+   instance's registers and spills are printed (a spill is reported, not
+   failed);
 3. kernels: flash_attention, decode_attention and rglru_scan, each
    against its plain PyTorch version on the card, at the test shapes, the
    shapes the paths give them (flash also on the paths' own layout:
@@ -35,8 +39,30 @@ Phases, each of which exits non-zero on failure:
    kernel, the plain version and one PyTorch library call of the same
    function where there is one (a yardstick only), beside the least time
    the card could take (bytes over 3.35 TB/s or operations over the peak
-   rate of the input type, whichever is larger);
-4. model: full-width, full-depth qwen3-4b, stablelm-1.6b,
+   rate of the input type, whichever is larger); then the backward
+   kernels, reached through autograd, against autograd of their plain
+   versions on the card: flash at the test shapes, ragged S, GQA and
+   MQA, non-causal cross-attention Sq 48 / Sk 1024, all-masked rows,
+   D 120 and the train shapes (qwen3-4b's layer B2 S2048 D128 and the
+   hybrid's attention block at S 2100 across its 2048 window), in fp32
+   and bf16 (each gradient within 1e-4 / 2e-2 of |plain| + its rms; the
+   plain version runs in fp32 on the same inputs and rounds once);
+   rglru_scan with and without h0, at S = 1, ragged, and the hybrid's
+   [2, 2100, 4096] (fp32 and bf16); the backward kernel's time, the
+   plain backward's, SDPA's backward (flash only) and the bound;
+4. train: (a) qwen3-4b at full width cut to 2 layers and (c)
+   recurrentgemma-9b at full width cut to one (rec, rec, attn) pattern,
+   B2 S2048 / S2100, one step's loss and every parameter's gradient
+   through the kernels against the same step on the plain versions
+   (each gradient within 5e-2 of its norm), launches exact (flash twice
+   a layer under remat, its backward 3 kernels a call; rglru_scan's
+   backward once a rec block); (b) full-width, full-depth qwen3-4b
+   (remat on): 4 steps of the synthetic pipeline through
+   ``launch.train.train`` at B2 S2048 (B1 if the reckoned peak does not
+   fit), finite losses and grad norms, parameters moved (how many
+   tensors, and the norm gains, which start at zero), exact flash
+   launches, time per step, tokens/s and peak memory;
+5. model: full-width, full-depth qwen3-4b, stablelm-1.6b,
    recurrentgemma-9b, granite-20b, mamba2-2.7b, h2o-danube-3-4b,
    seamless-m4t-medium and llava-next-mistral-7b (random bf16 weights
    from a seed) give finite logits of the right shape; one layer of each
@@ -48,7 +74,7 @@ Phases, each of which exits non-zero on failure:
    token from the cache of the first S - 1 (the whole model's
    last-position logits from prefill + ``decode_step`` are reported
    beside ``forward``'s);
-5. generate: prefill then 16 ``decode_step``s of full-width qwen3-4b
+6. generate: prefill then 16 ``decode_step``s of full-width qwen3-4b
    (B2, prompt 1024), recurrentgemma-9b (B2, prompt 2100, past its 2048
    window, so the cache is a wrapped ring) and mamba2-2.7b (B2, prompt
    2048, a multiple of its 256-token SSD chunk), h2o-danube-3-4b (B2,
@@ -63,7 +89,7 @@ Phases, each of which exits non-zero on failure:
    self + 12 cross) + steps x cross-attention layers (seamless's 12),
    the time of ``api.prefill`` (host clock around a synchronised call,
    median of 3) and the time per decode step;
-6. serving: ``serve_pair`` hosts qwen3-4b (Q0) with stablelm-1.6b, with
+7. serving: ``serve_pair`` hosts qwen3-4b (Q0) with stablelm-1.6b, with
    recurrentgemma-9b (pair E of the paper's Fig 16), with mamba2-2.7b
    (pair A) and with granite-20b (pair B); stablelm-1.6b (Q0) with
    h2o-danube-3-4b (pair F); seamless-m4t-medium (Q0) with
@@ -74,10 +100,10 @@ Phases, each of which exits non-zero on failure:
    launches with Sq != Sk exactly their cross-attention layers (flash
    counts its launches per shape, so each entry of the ``kernels`` line
    gives the launches at its own shape);
-7. profile: the measurement phase's SK/SG per segment of each service at
+8. profile: the measurement phase's SK/SG per segment of each service at
    full size, beside one layer's (or block's) device time (seamless: its
    whole encode segment and one decoder layer);
-8. load: ``serve_load`` of pair A at full size, open-loop Poisson gold
+9. load: ``serve_load`` of pair A at full size, open-loop Poisson gold
    (qwen3-4b B1 S32, Q0, a 0.5 s deadline) and diurnal bronze (mamba2-2.7b
    B2 S32, Q5) through the admission plane, at 0.5x and 2x the capacity
    the measurement phase gives under FIKIT and at 0.5x under SHARING;
@@ -85,7 +111,7 @@ Phases, each of which exits non-zero on failure:
    goodput; fails on a FAILED ticket, a priority inversion, a class that
    breaks the plane's invariant, or a flash count other than 36 per
    qwen3 invocation the engine ran (the ``admit`` events count them);
-9. ops: pair A's ``serve_pair`` without and with a jobstore (hi JCT,
+10. ops: pair A's ``serve_pair`` without and with a jobstore (hi JCT,
    qwen3's sharing-phase layer SK/SG, each write-ahead record's time);
    one full-width qwen3-4b service paused and resumed through control
    rows the poller consumes (tokens equal to an uninterrupted run's) and
@@ -93,8 +119,9 @@ Phases, each of which exits non-zero on failure:
    recovered to DONE by ``serve_pair(..., resume=True)``; the ``status``
    verb, run as a subprocess, lists every job DONE or CANCELLED.
 
-Every path (generate, each serving, load and ops run) is driven with all launch
-counters set to 0 just before it and read just after; launches made to
+Every path (each train step check and the train run, generate, each
+serving, load and ops run) is driven with all launch counters set to 0
+just before it and read just after; launches made to
 compare a kernel with its plain version are not counted. The
 second-to-last lines are a JSON object of the kernels and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -107,6 +134,7 @@ import collections
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -250,6 +278,43 @@ RG_LONG = (1, 8192, 4096)             # B 1: 32-column tiles underfill
 RG_EDGE = [(4, 1, 4096), (2, 95, 4096), (2, 97, 4096), (2, 191, 4096),
            (2, 193, 4096), (2, 300, 4100), (3, 129, 1001)]
 
+# the backward kernels (the train path): their sources, built with the
+# forward kernels', and the tolerance of each gradient, on the scaled
+# error |kernel - plain| / (|plain| + rms of the plain gradient): fp32
+# 1e-4, bf16 2e-2 (flash; rglru_scan's error over max(1, max|plain|))
+BWD_SOURCES = ("flash_attention_bwd", "rglru_scan_bwd")
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# what a backward replaces: the JAX package differentiates its jnp paths
+# with XLA, and no Pallas kernel has a backward
+FLASH_BWD_REPLACES = ("jax.grad of src/repro/models/attention.py:80 "
+                      "(attend; XLA autodiff)")
+RGLRU_BWD_REPLACES = ("jax.grad of src/repro/models/rglru.py:115 "
+                      "(rglru_scan_full; XLA autodiff)")
+# flash backward: the test shapes, ragged S (a window inside a tile; Sq
+# != Sk causal), GQA and MQA (in the test shapes), non-causal
+# cross-attention Sq 48 / Sk 1024, all-masked rows, D 120, and the train
+# shapes: qwen3-4b's layer (B2 S2048) and the hybrid's attention block
+# (MQA, D 256, its 2048 window crossed at S 2100)
+QWEN_TRAIN = (2, 32, 8, 2048, 2048, 128, {})
+HYB_TRAIN = (2, 16, 1, 2100, 2100, 256, dict(window=2048))
+FLASH_BWD_CASES = TEST_CASES + [
+    RAGGED, (2, 8, 2, 130, 77, 128, {}), CROSS_48, ALL_MASKED,
+    (1, 8, 2, 256, 256, 120, dict(window=96)), QWEN_TRAIN, HYB_TRAIN]
+# rglru_scan backward: test shapes, ragged, S = 1 and the hybrid's train
+# shape [2, 2100, 4096], each with and without h0
+RG_TRAIN = (2, 2100, 4096)
+RG_BWD_CASES = RGLRU_CASES[:2] + [(3, 37, 200), (4, 1, 4096), RG_TRAIN]
+# the train phase: (a) qwen3-4b at full width cut to 2 layers and (c)
+# recurrentgemma-9b at full width cut to one (rec, rec, attn) pattern,
+# one step's gradients through the kernels against the plain versions,
+# each tensor's within TRAIN_GRAD_TOL of its norm (bf16 weights: both
+# runs round every activation to bf16; the kernels' forward rounds P to
+# bf16 for wgmma); (b) full-width, full-depth qwen3-4b, TRAIN_STEPS
+# steps of the synthetic pipeline through ``launch.train.train``
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 4
+HYB_TRAIN_S = 2100
+TRAIN_GRAD_TOL = 5e-2
+
 
 _T0 = time.perf_counter()
 
@@ -324,6 +389,15 @@ def finish_case(torch, label, out, want, tol, kernel_fn, plain_fn, lib_fn,
     if not (err < tol) or out.dtype != want.dtype or out.shape != want.shape:
         raise AssertionError(f"{label}: max|kernel - plain| = {err} "
                              f"(tol {tol})")
+    return timed_case(torch, label, err, kernel_fn, plain_fn, lib_fn, n,
+                      bound, extra, plain_n)
+
+
+def timed_case(torch, label, err, kernel_fn, plain_fn, lib_fn, n, bound,
+               extra, plain_n=None):
+    """The record of a case whose error ``err`` was held: the kernel's
+    median time (n calls a window), the plain version's (``plain_n``) and
+    the library call's, beside the bound."""
     ms = device_ms(torch, kernel_fn, n)
     plain_ms = device_ms(torch, plain_fn, plain_n or max(1, n // 4))
     library_ms = None if lib_fn is None else device_ms(torch, lib_fn, n)
@@ -333,6 +407,8 @@ def finish_case(torch, label, out, want, tol, kernel_fn, plain_fn, lib_fn,
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     if "scaled_err" in extra:
         err = f"{err:.3g} (scaled {extra['scaled_err']:.3g})"
+    elif "grad_errs" in extra:
+        err = f"{err:.3g} (scaled {max(extra['grad_errs']):.3g})"
     else:
         err = f"{err:.3g}"
     plan = ""
@@ -548,6 +624,303 @@ def rglru_plan(torch, B, S, W, dtype) -> dict:
     return kernel.scan_plan(B, S, W, dtype, sms)._asdict()
 
 
+# ------------------------------------------------------- backward cases
+def grad_err(torch, got, want) -> float:
+    """max |got - want| / (|want| + rms of want): a gradient's error
+    against its size (a row can be exactly zero, so not the row's rms);
+    a gradient that is zero everywhere must be zero."""
+    got, want = got.float(), want.float()
+    rms = want.square().mean().sqrt().clamp_min(torch.finfo().tiny)
+    return float(((got - want).abs() / (want.abs() + rms)).max())
+
+
+def check_flash_bwd_case(torch, K, case, dtype, seed):
+    """flash_attention's backward kernel, reached through autograd on
+    attend's transposed [B, S, heads, D] views, against autograd of the
+    plain version: in fp32 on the same inputs (bf16 upcast), its
+    gradients rounded once to the input type (autograd of the bf16 call
+    would round each query head's dk and dv before summing the group).
+    Times the backward kernel alone, the plain version's backward and
+    SDPA's backward (kv heads expanded outside; a yardstick only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (
+        BWD_PASSES, bwd_library, flash_attention_bwd_kernel)
+    if bwd_library().flash_attention_bwd_passes() != BWD_PASSES:
+        raise AssertionError(f"the binding counts {BWD_PASSES} backward "
+                             f"kernels a call; the library launches "
+                             f"{bwd_library().flash_attention_bwd_passes()}")
+    ops, ref = K["flash_attention"]
+    B, H, Kh, Sq, Sk, D, kw = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda")
+               .to(dtype).transpose(1, 2)
+               for S, n in ((Sq, H), (Sk, Kh), (Sk, Kh)))
+    dout = torch.randn(B, H, Sq, D, generator=g, device="cuda").to(dtype)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = K["launchers"]["flash_attention"].bwd_launches
+    out = ops.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, dout)
+    passes = K["launchers"]["flash_attention"].bwd_launches - before
+    f32 = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*f32, **kw), f32,
+                               dout.float())
+    name = dtype_name(dtype)
+    label = f"flash_attention backward {case[:6]} {kw} {name} BSHD views"
+    errs = [grad_err(torch, got, w.to(dtype))
+            for got, w in zip(grads, want)]
+    if passes != BWD_PASSES or any(
+            got.dtype != dtype or got.shape != t.shape
+            for got, t in zip(grads, (q, k, v))):
+        raise AssertionError(f"{label}: {passes} backward kernels (need "
+                             f"{BWD_PASSES}) or gradients of the wrong "
+                             f"type or shape")
+    if not max(errs) < BWD_TOL[name]:
+        raise AssertionError(f"{label}: scaled error of dq, dk, dv {errs} "
+                             f"(tol {BWD_TOL[name]})")
+    abs_err = max(float((got.float() - w.to(dtype).float()).abs().max())
+                  for got, w in zip(grads, want))
+    del want, f32
+    # the plain version's backward on the same inputs, and SDPA's
+    plain_in = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    plain_out = ref.flash_attention_ref(*plain_in, **kw)
+    G = H // Kh
+    lib_in = [t.detach().requires_grad_(True) for t in
+              (q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1))]
+    mask, pairs = allowed_pairs(torch, Sq, Sk, **kw)
+    if kw or Sq != Sk:
+        lib_out = F.scaled_dot_product_attention(*lib_in,
+                                                 attn_mask=mask.cuda())
+    else:
+        lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True)
+    esz = 2 if dtype == torch.bfloat16 else 4
+    bound = least_ms(esz * D * (3 * B * H * Sq + 4 * B * Kh * Sk),
+                     10 * D * B * H * pairs, name)
+    rec = timed_case(
+        torch, label, abs_err,
+        lambda: flash_attention_bwd_kernel(q, k, v, dout, **kw),
+        lambda: torch.autograd.grad(plain_out, plain_in, dout,
+                                    retain_graph=True),
+        lambda: torch.autograd.grad(lib_out, lib_in, dout,
+                                    retain_graph=True),
+        2 if Sq >= 2048 else 10, bound,
+        {"shape": list(case[:6]), "kw": kw, "dtype": name,
+         "layout": "BSHD views", "grad_errs": errs, "passes": passes},
+        plain_n=1)
+    del plain_out, lib_out
+    return rec
+
+
+def check_rglru_bwd_case(torch, K, case, dtype, seed, with_h0=True):
+    """rglru_scan's backward kernel through autograd against autograd of
+    the plain version on the same inputs: each gradient within BWD_TOL of
+    max(1, its largest value). No single PyTorch call computes the
+    recurrence, so there is no library time."""
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd_kernel
+    ops, ref = K["rglru_scan"]
+    B, S, W = case
+    a, b, h0 = rglru_inputs(torch, case, dtype, seed, with_h0)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(B, S, W, generator=g, device="cuda").to(dtype)
+    leaves = [t.requires_grad_(True) for t in (a, b, h0) if t is not None]
+    before = K["launchers"]["rglru_scan"].bwd_launches
+    h = ops.rglru_scan(a, b, h0)
+    grads = torch.autograd.grad(h, leaves, dy)
+    launched = K["launchers"]["rglru_scan"].bwd_launches - before
+    plain_in = [t.detach().requires_grad_(True) for t in leaves]
+    plain_out = ref.rglru_scan_ref(*plain_in[:2],
+                                   plain_in[2] if with_h0 else None)
+    want = torch.autograd.grad(plain_out, plain_in, dy, retain_graph=True)
+    name = dtype_name(dtype)
+    label = f"rglru_scan backward {case} h0={with_h0} {name}"
+    errs = [float((got.float() - w.float()).abs().max())
+            / max(1.0, float(w.float().abs().max()))
+            for got, w in zip(grads, want)]
+    if launched != 1 or not max(errs) < BWD_TOL[name]:
+        raise AssertionError(f"{label}: {launched} backward launches, "
+                             f"errors {errs} (tol {BWD_TOL[name]})")
+    esz = 2 if dtype == torch.bfloat16 else 4
+    hd = h.detach()
+    h0d = None if h0 is None else h0.detach()
+    bound = least_ms(5 * esz * B * S * W + (8 * B * W if with_h0 else 0),
+                     3 * B * S * W, "float32")
+    abs_err = max(float((got.float() - w.float()).abs().max())
+                  for got, w in zip(grads, want))
+    return timed_case(
+        torch, label, abs_err,
+        lambda: rglru_scan_bwd_kernel(a.detach(), hd, dy, h0d),
+        lambda: torch.autograd.grad(plain_out, plain_in, dy,
+                                    retain_graph=True), None,
+        20 if S <= 512 else 10, bound,
+        {"shape": list(case), "h0": with_h0, "dtype": name,
+         "grad_errs": errs}, plain_n=1)
+
+
+# ------------------------------------------------------------ train phase
+def train_grads(torch, K, model, cfg, batch, labels, plain=False):
+    """One step's loss and every parameter's gradient through
+    ``api.forward`` + ``api.loss_fn``; ``plain``: with every kernel
+    replaced by its plain version (autograd differentiates it)."""
+    from repro_torch.models import api
+    names, params = zip(*model.named_parameters())
+    with plain_versions(K) if plain else contextlib.nullcontext():
+        logits, aux = api.forward(model, batch, cfg)
+        loss = api.loss_fn(logits, labels[:, :logits.shape[1]], aux)
+        del logits
+        grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def train_inputs_for(torch, cfg, batch, seq, seed=0):
+    """The train driver's batch and labels from the synthetic pipeline's
+    first batch."""
+    from repro_torch.data.pipeline import SyntheticTextPipeline
+    from repro_torch.launch.train import train_inputs
+    tb = next(SyntheticTextPipeline(cfg.vocab_size, batch, seq, seed=seed))
+    return train_inputs(cfg, tb.tokens, tb.labels, batch, seq, "cuda")
+
+
+def train_grads_check(torch, K, label, cfg, batch, seq, need):
+    """One train step's gradients of ``cfg`` at full width through the
+    kernels, launches counted (``need``: exact counts), against the same
+    step on the plain versions: the loss within 2e-2 of max(1, |loss|),
+    every gradient within TRAIN_GRAD_TOL of its norm."""
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    model = api.build_params(cfg, seed=0, device="cuda")
+    model.requires_grad_(True)
+    inputs, labels = train_inputs_for(torch, cfg, batch, seq)
+    reset_launches(K)
+    loss, grads = train_grads(torch, K, model, cfg, inputs, labels)
+    torch.cuda.synchronize()
+    launches = read_launches(K)
+    bad = {k: (launches[k], v) for k, v in need.items()
+           if launches[k] != v}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, need) {bad}")
+    loss_ref, ref = train_grads(torch, K, model, cfg, inputs, labels,
+                                plain=True)
+    rel = {}
+    for n, gr in ref.items():
+        if not bool(torch.isfinite(grads[n]).all()):
+            raise AssertionError(f"{label}: gradient of {n} not finite")
+        norm = float(gr.float().norm())
+        diff = float((grads[n].float() - gr.float()).norm())
+        rel[n] = diff / norm if norm else (0.0 if diff == 0 else
+                                           float("inf"))
+    worst = max(rel, key=rel.get)
+    if not (abs(loss - loss_ref) <= 2e-2 * max(1.0, abs(loss_ref))
+            and rel[worst] <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"{label}: loss {loss} vs plain {loss_ref}; "
+                             f"worst gradient {worst} off by {rel[worst]} "
+                             f"of its norm (tol {TRAIN_GRAD_TOL})")
+    rec = {"model": label, "layers": cfg.num_layers, "batch": batch,
+           "seq": seq, "loss": loss, "loss_plain": loss_ref,
+           "grad_tensors": len(rel), "worst_grad_rel_err": rel[worst],
+           "worst_grad": worst,
+           "median_grad_rel_err": statistics.median(rel.values()),
+           "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    log(f"  {label}: " + json.dumps(rec))
+    del model, grads, ref
+    return rec
+
+
+def train_memory_bytes(cfg, n_params, batch, seq) -> int:
+    """The train step's peak, reckoned: bf16 weights and gradients, fp32
+    moments (2 x 4 bytes), the logits (bf16, their fp32 copy and its
+    gradient, the bf16 gradient: 12 bytes a value) and the checkpointed
+    layer inputs (bf16)."""
+    tokens = batch * seq
+    return (2 * n_params + 2 * n_params + 8 * n_params
+            + 12 * tokens * cfg.vocab_size
+            + 2 * cfg.num_layers * tokens * cfg.d_model)
+
+
+def train_full(torch, K):
+    """Full-width, full-depth qwen3-4b: TRAIN_STEPS steps of the
+    synthetic pipeline through ``launch.train.train`` (AdamW, remat on),
+    with its launches counted: flash's forward twice per layer and step
+    (the forward and its recompute), its backward BWD_PASSES kernels per
+    layer and step. Fails on a loss or grad_norm that is not finite or
+    if no parameter moved; prints how many parameter tensors changed
+    (the warmup's lr, 3e-6 to 1.2e-5, is under the bf16 spacing of most
+    weights; the norm gains start at zero and must move), the time per
+    step, tokens/s and the peak memory."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels.flash_attention.kernel import BWD_PASSES
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import api
+    cfg = get_config(HI)
+    n_params = sum(p.numel() for p in
+                   api.build_params(cfg, device="meta").parameters())
+    total = torch.cuda.get_device_properties(0).total_memory
+    batch = TRAIN_B
+    reckoned = train_memory_bytes(cfg, n_params, batch, TRAIN_S)
+    cut = None
+    if reckoned > 0.9 * total:
+        batch = 1
+        cut = (f"B{TRAIN_B} reckoned {reckoned / 1e9:.1f} GB of "
+               f"{total / 1e9:.1f}: B1")
+        reckoned = train_memory_bytes(cfg, n_params, batch, TRAIN_S)
+    log(f"  qwen3-4b: {n_params / 1e9:.3f} B parameters; B{batch} "
+        f"S{TRAIN_S} reckoned peak {reckoned / 1e9:.1f} GB of "
+        f"{total / 1e9:.1f}" + (f" ({cut})" if cut else ""))
+    model = api.build_params(cfg, seed=0, device="cuda")
+
+    def fingerprints():
+        # the sum of each tensor's bf16 bit patterns: any changed element
+        # changes it (short of changes that cancel exactly)
+        return {n: int(p.detach().view(torch.int16).sum(dtype=torch.int64))
+                for n, p in model.named_parameters()}
+    before = fingerprints()
+    free(torch)
+    stamps, metrics = [], []
+
+    def on_step(step, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append({k: float(v) for k, v in m.items()})
+    reset_launches(K)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train_mod.train(HI, steps=TRAIN_STEPS, batch=batch,
+                             seq=TRAIN_S, reduced=False, seed=0,
+                             log_every=1, device="cuda", model=model,
+                             on_step=on_step)
+    launches = read_launches(K)
+    peak = torch.cuda.max_memory_allocated()
+    after = fingerprints()
+    changed = [n for n in after if after[n] != before[n]]
+    norms = [n for n in after if n.endswith(("ln1", "ln2", "final_norm",
+                                             "q_norm", "k_norm"))]
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    L = cfg.num_layers
+    need = {"flash_attention": 2 * L * TRAIN_STEPS,
+            "flash_attention_bwd": BWD_PASSES * L * TRAIN_STEPS,
+            "decode_attention": 0, "rglru_scan": 0, "rglru_scan_bwd": 0}
+    rec = {"model": HI, "parameters": n_params, "layers": L,
+           "batch": batch, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+           "remat": cfg.remat, "cut": cut, "losses": losses,
+           "grad_norms": [m["grad_norm"] for m in metrics],
+           "lrs": [m["lr"] for m in metrics], "step_s": step_s,
+           "step_s_median_after_first": statistics.median(step_s[1:]),
+           "tokens_per_s": batch * TRAIN_S
+           / statistics.median(step_s[1:]),
+           "peak_mem_bytes": peak, "reckoned_peak_bytes": reckoned,
+           "tensors_changed": len(changed), "tensors": len(after),
+           "norm_gains_changed": sum(n in changed for n in norms),
+           "norm_gains": len(norms), "launches": launches}
+    log(f"  qwen3-4b full depth: " + json.dumps(rec))
+    bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
+    finite = all(math.isfinite(x) for x in losses + rec["grad_norms"])
+    if bad or not finite or not changed:
+        raise AssertionError(f"train: launches (got, need) {bad}; finite "
+                             f"losses and grad norms {finite}; "
+                             f"{len(changed)} tensors changed")
+    del model
+    return rec
+
+
 # ----------------------------------------------------------- model phases
 def launchers(K) -> dict:
     """The kernels' wrappers as imported, whose ``launches`` count kernel
@@ -558,11 +931,19 @@ def launchers(K) -> dict:
 def reset_launches(K) -> None:
     for fn in K["launchers"].values():
         fn.launches = 0
+        if hasattr(fn, "bwd_launches"):
+            fn.bwd_launches = 0
     K["launchers"]["flash_attention"].launches_by_shape.clear()
 
 
 def read_launches(K) -> dict:
-    return {name: fn.launches for name, fn in K["launchers"].items()}
+    """Each kernel's launches since the last reset, and its backward's
+    (``<name>_bwd``: kernels launched, flash's BWD_PASSES a call)."""
+    out = {name: fn.launches for name, fn in K["launchers"].items()}
+    out.update({f"{name}_bwd": fn.bwd_launches
+                for name, fn in K["launchers"].items()
+                if hasattr(fn, "bwd_launches")})
+    return out
 
 
 def shape_key(case) -> str:
@@ -616,7 +997,7 @@ def checked_calls(K):
                 return out
             # the wrapper counts on the name it is patched under: these
             # comparison launches land here, not on the path's counter
-            checked.launches = 0
+            checked.launches = checked.bwd_launches = 0
             checked.launches_by_shape = collections.Counter()
             stack.enter_context(mock.patch.object(ops, name, checked))
         yield {"worst_err_to_limit": worst, "calls": calls}
@@ -1451,7 +1832,9 @@ def ops_recover(torch, K, db):
 # the instances the build phase checks in each library: the kernel's
 # mangled name, how to label an instance, the SASS opcode it must show
 # (None: no tensor cores), and how many instances there are. flash and
-# decode: their bf16 tensor-core instances; rglru_scan: both of its own.
+# decode: their bf16 tensor-core instances; rglru_scan: both of its own;
+# the backward kernels: every instance (flash's 3 passes x 5 head dims x
+# 2 types), whose spills are reported, not failed
 INSTANCES = {
     "flash_attention": (r"flash_fwd_tcILi(\d+)ELi(\d+)E",
                         lambda t: f"D{t.group(1)} x{t.group(2)} warpgroups",
@@ -1461,6 +1844,13 @@ INSTANCES = {
     "rglru_scan": (r"rglru_scan_splitI(f|13__nv_bfloat16)E",
                    lambda t: "fp32" if t.group(1) == "f" else "bf16",
                    None, 2),
+    "flash_attention_bwd": (
+        r"(flash_bwd_\w+?)I(f|13__nv_bfloat16)Li(\d+)E",
+        lambda t: (f"{t.group(1)} {'fp32' if t.group(2) == 'f' else 'bf16'}"
+                   f" D{t.group(3)}"), None, 30),
+    "rglru_scan_bwd": (r"rglru_scan_bwd_kernelI(f|13__nv_bfloat16)E",
+                       lambda t: "fp32" if t.group(1) == "f" else "bf16",
+                       None, 2),
 }
 
 
@@ -1469,7 +1859,8 @@ def instance_check(lib, kernel: str) -> dict:
     registers and spill bytes from ptxas's ``-v`` report beside it, and
     the count of its tensor-core instruction (flash: HGMMA, wgmma;
     decode: HMMA, mma.sync) in ``cuobjdump -sass``. Fails if an instance
-    spills, or has no tensor-core instruction where one is expected."""
+    is missing, spills (a backward kernel's spill is only reported), or
+    has no tensor-core instruction where one is expected."""
     pattern, label, opcode, expect = INSTANCES[kernel]
 
     def instance(symbol):
@@ -1495,7 +1886,8 @@ def instance_check(lib, kernel: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             inst[name]["registers"] = int(m.group(1))
-    bad = {k: v for k, v in inst.items() if v["spill_bytes"]}
+    bad = {k: v for k, v in inst.items()
+           if v["spill_bytes"] and kernel not in BWD_SOURCES}
     if opcode is None:
         if len(inst) != expect or bad:
             raise AssertionError(f"{kernel} instances {inst}: expected "
@@ -1562,11 +1954,14 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    libs = _build.build_all(KERNELS)
-    log(f"[build] {', '.join(k + '.cu' for k in KERNELS)} built with nvcc "
-        f"for sm_90a in {time.perf_counter() - t0:.1f} s (in parallel)")
+    libs = _build.build_all(KERNELS + BWD_SOURCES)
+    log(f"[build] {', '.join(k + '.cu' for k in KERNELS + BWD_SOURCES)} "
+        f"built with nvcc for sm_90a in {time.perf_counter() - t0:.1f} s "
+        f"(in parallel)")
     for name, (_, _, opcode, _) in INSTANCES.items():
         what = "bf16 instances (tensor cores)" if opcode else "instances"
+        if name in BWD_SOURCES:
+            what += " (a spill is reported, not failed)"
         log(f"  {name} {what}: " + json.dumps(instance_check(libs[name],
                                                                 name)))
 
@@ -1641,6 +2036,47 @@ def main() -> int:
     rg["prompt_bf16"] = check_rglru_case(torch, K, RG_PREFILL, bf16,
                                          seed + 4)
     seed += 4
+    free(torch)
+
+    log("[kernels] backward kernels vs autograd of their plain versions")
+    bwd = {}
+    for case in FLASH_BWD_CASES:
+        for dtype in (f32, bf16):
+            seed += 1
+            bwd[(case[:6], dtype)] = check_flash_bwd_case(torch, K, case,
+                                                          dtype, seed)
+            free(torch)
+    for case in RG_BWD_CASES:
+        for with_h0 in (True, False):
+            seed += 1
+            bwd[(case, with_h0)] = check_rglru_bwd_case(
+                torch, K, case, f32, seed, with_h0)
+    for with_h0 in (True, False):
+        seed += 1
+        bwd[(RG_TRAIN, with_h0, "bf16")] = check_rglru_bwd_case(
+            torch, K, RG_TRAIN, bf16, seed, with_h0)
+    free(torch)
+
+    log("[train] (a) qwen3-4b at full width, 2 layers, and (c) "
+        "recurrentgemma-9b at full width, one (rec, rec, attn) pattern: "
+        "one step's gradients, kernels vs plain versions")
+    from repro_torch.config import get_config
+    from repro_torch.kernels.flash_attention.kernel import BWD_PASSES
+    train_grads_check(
+        torch, K, "qwen3-4b (2 layers)",
+        get_config(HI).replace(num_layers=2), TRAIN_B, TRAIN_S,
+        {"flash_attention": 2 * 2, "flash_attention_bwd": 2 * BWD_PASSES,
+         "decode_attention": 0, "rglru_scan": 0, "rglru_scan_bwd": 0})
+    free(torch)
+    train_hyb = train_grads_check(
+        torch, K, "recurrentgemma-9b (rec, rec, attn)",
+        get_config(HYB).replace(num_layers=3), TRAIN_B, HYB_TRAIN_S,
+        {"flash_attention": 2, "flash_attention_bwd": BWD_PASSES,
+         "rglru_scan": 2 * 2, "rglru_scan_bwd": 2, "decode_attention": 0})
+    free(torch)
+    log(f"[train] (b) qwen3-4b at full width and depth: {TRAIN_STEPS} "
+        f"steps of launch.train.train, B{TRAIN_B} S{TRAIN_S}")
+    train_qwen = train_full(torch, K)
     free(torch)
 
     log("[model] full-size models, kernels vs plain versions in a block "
@@ -1790,6 +2226,23 @@ def main() -> int:
             "B2 H32 Kh8 C4096 D120 bf16 wrapped ring (h2o-danube-3-4b "
             f"generation, the D 120 instance); launches: h2o generate, "
             f"{GEN_STEPS} steps"),
+        kernel_entry(
+            "flash_attention_bwd",
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            FLASH_BWD_REPLACES,
+            train_qwen["launches"]["flash_attention_bwd"],
+            bwd[(QWEN_TRAIN[:6], bf16)],
+            f"B2 H32 Kh8 S2048 D128 causal bf16 (qwen3-4b's train shape); "
+            f"launches: {TRAIN_STEPS} full-depth qwen3-4b train steps, "
+            f"{BWD_PASSES} kernels a call"),
+        kernel_entry(
+            "rglru_scan_bwd", "src/repro_torch/csrc/rglru_scan_bwd.cu",
+            RGLRU_BWD_REPLACES,
+            train_hyb["launches"]["rglru_scan_bwd"],
+            bwd[(RG_TRAIN, False)],
+            "[2, 2100, 4096] fp32, no h0 (recurrentgemma-9b's train "
+            "shape); launches: one train step of the (rec, rec, attn) "
+            "pattern"),
     ]
     unused = [e["shape"] for e in entries if e["launches"] < 1]
     if unused:

@@ -1,6 +1,9 @@
 """Binding of the Hopper flash attention kernel
 (``repro_torch/csrc/flash_attention.cu``), which replaces the Pallas TPU
-kernel ``repro.kernels.flash_attention.kernel.flash_attention_kernel``.
+kernel ``repro.kernels.flash_attention.kernel.flash_attention_kernel``,
+and of its backward (``repro_torch/csrc/flash_attention_bwd.cu``), which
+has no Pallas counterpart: the JAX package differentiates its jnp
+attention with XLA.
 
 The library is built and loaded on the first launch (``kernels._build``),
 never at import, so the CPU tests import this module without ``nvcc``.
@@ -35,6 +38,21 @@ _SIGNATURES = {
                             ctypes.c_int),
     "flash_attention_error_string": ([_I], ctypes.c_char_p),
 }
+_BWD_SIGNATURES = {
+    # q, k, v, dout, dq, dk, dv, lse, di; dtype, B, H, Kh, Sq, Sk, D;
+    # 21 (b, h, s) strides of q, k, v, dout, dq, dk, dv; causal, window,
+    # chunk, scale, stream
+    "flash_attention_bwd": ([_P] * 9 + [_I] * 7 + [_P]
+                            + [_I, _I, _I, ctypes.c_float, _P],
+                            ctypes.c_int),
+    "flash_attention_bwd_passes": ([], ctypes.c_int),
+    "flash_attention_bwd_error_string": ([_I], ctypes.c_char_p),
+}
+#: kernels one backward call launches (lse and Di; dK and dV; dQ), the
+#: library's ``flash_attention_bwd_passes``
+BWD_PASSES = 3
+#: the backward's grid dimension y is B * H (or B * Kh)
+GRID_Y_MAX = 65535
 
 
 def warpgroups(B: int, H: int, Sq: int) -> int:
@@ -67,6 +85,11 @@ def _strides(t: torch.Tensor) -> list:
 def library() -> ctypes.CDLL:
     """The kernel's library, built by nvcc on the first call."""
     return _build.load("flash_attention", _SIGNATURES)
+
+
+def bwd_library() -> ctypes.CDLL:
+    """The backward's library, built by nvcc on the first call."""
+    return _build.load("flash_attention_bwd", _BWD_SIGNATURES)
 
 
 def _check(q, k, v) -> None:
@@ -136,3 +159,49 @@ def flash_attention_kernel(q, k, v, *, causal=True, window=None, chunk=None,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} ({msg})")
     return o
+
+
+def flash_attention_bwd_kernel(q, k, v, dout, *, causal=True, window=None,
+                               chunk=None, scale=None):
+    """The gradients (dq, dk, dv) of attention(q, k, v) (the forward
+    kernel's function, which the backward recomputes in fp32) against
+    ``dout`` [B, H, Sq, D], each of its input's shape, dtype and strides
+    (a dense layout is kept, so attend's transposed views get transposed
+    gradients). Any strides with a contiguous last dim are taken as they
+    are; ``dout`` is copied only if its last dim is not contiguous."""
+    _check(q, k, v)
+    if chunk is not None and chunk <= 0:
+        raise ValueError(f"flash_attention kernel: chunk {chunk} must be > 0")
+    B, H, Sq, D = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    if (dout.shape != q.shape or dout.dtype != q.dtype
+            or dout.device != q.device):
+        raise ValueError(f"flash_attention backward: dout "
+                         f"{tuple(dout.shape)} {dout.dtype} on {dout.device} "
+                         f"does not match q {tuple(q.shape)} {q.dtype}")
+    if max(B * H, B * Kh) > GRID_Y_MAX:
+        raise ValueError(f"flash_attention backward: B * H = {B * H} past "
+                         f"the grid's {GRID_Y_MAX}")
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    scale = scale if scale is not None else D ** -0.5
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    di = torch.empty_like(lse)
+    strides = (ctypes.c_int64 * 21)(*[
+        st for t in (q, k, v, dout, dq, dk, dv) for st in _strides(t)])
+    lib = bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), DTYPES[q.dtype], B, H, Kh, Sq, Sk, D,
+            ctypes.cast(strides, ctypes.c_void_p), int(causal),
+            -1 if window is None else int(window),
+            -1 if chunk is None else int(chunk), float(scale), stream)
+    if err != 0:
+        msg = lib.flash_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err} ({msg})")
+    return dq, dk, dv

@@ -1,29 +1,39 @@
-"""Public wrapper of the flash attention kernel.
+"""Public wrapper of the flash attention kernel and its backward.
 
 A CUDA tensor launches the Hopper kernel (or raises); a tensor on the CPU
-goes to the plain version, ``ref.flash_attention_ref``. There is no
-fallback from one to the other. ``flash_attention.launches`` counts the
-kernel's launches, so a run can show that its path went through it, and
+goes to the plain version, ``ref.flash_attention_ref``, which autograd
+differentiates. There is no fallback from one to the other. When autograd
+records (grad enabled and an input that requires grad), the CUDA call
+goes through ``FlashAttention``, a ``torch.autograd.Function`` whose
+forward is the kernel and whose backward is the backward kernel
+(``csrc/flash_attention_bwd.cu``); otherwise it launches the kernel
+directly, so serving pays no autograd bookkeeping.
+
+``flash_attention.launches`` counts the forward kernel's launches, so a
+run can show that its path went through it, and
 ``flash_attention.launches_by_shape`` counts them per (B, H, Kh, Sq, Sk,
-D), so a run that launches several shapes can tell them apart.
+D), so a run that launches several shapes can tell them apart;
+``flash_attention.bwd_launches`` counts the backward's kernels (each
+backward call launches ``kernel.BWD_PASSES`` of them).
 """
 from __future__ import annotations
 
 import collections
 import threading
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import (
+    BWD_PASSES,
+    flash_attention_bwd_kernel,
+    flash_attention_kernel,
+)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _count_lock = threading.Lock()
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
-                    scale=None):
-    """q: [B, H, Sq, D]; k/v: [B, Kh, Sk, D] -> [B, H, Sq, D]."""
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   chunk=chunk, scale=scale)
+def _forward(q, k, v, causal, window, chunk, scale):
     out = flash_attention_kernel(q, k, v, causal=causal, window=window,
                                  chunk=chunk, scale=scale)
     with _count_lock:
@@ -33,5 +43,40 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
     return out
 
 
+class FlashAttention(torch.autograd.Function):
+    """The kernel as an autograd function: forward saves q, k and v (the
+    backward recomputes the softmax statistics and the output in fp32);
+    backward launches the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, scale):
+        out = _forward(q, k, v, causal, window, chunk, scale)
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, chunk=chunk,
+                        scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(q, k, v, dout, **ctx.mask)
+        with _count_lock:
+            flash_attention.bwd_launches += BWD_PASSES
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
+                    scale=None):
+    """q: [B, H, Sq, D]; k/v: [B, Kh, Sk, D] -> [B, H, Sq, D]."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   chunk=chunk, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, chunk, scale)
+    return _forward(q, k, v, causal, window, chunk, scale)
+
+
 flash_attention.launches = 0
 flash_attention.launches_by_shape = collections.Counter()
+flash_attention.bwd_launches = 0

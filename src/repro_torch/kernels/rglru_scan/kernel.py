@@ -1,6 +1,8 @@
 """Binding of the Hopper RG-LRU scan kernel
 (``repro_torch/csrc/rglru_scan.cu``), which replaces the Pallas TPU kernel
-``repro.kernels.rglru_scan.kernel.rglru_scan_kernel``.
+``repro.kernels.rglru_scan.kernel.rglru_scan_kernel``, and of its backward
+(``repro_torch/csrc/rglru_scan_bwd.cu``), which has no Pallas counterpart:
+the JAX package differentiates the recurrence with XLA.
 
 The library is built and loaded on the first launch (``kernels._build``),
 never at import, so the CPU tests import this module without ``nvcc``.
@@ -35,11 +37,22 @@ _SIGNATURES = {
     "rglru_scan_rows": ([], ctypes.c_int),
     "rglru_scan_error_string": ([_I], ctypes.c_char_p),
 }
+_BWD_SIGNATURES = {
+    # a, h, dy, h0 (or null), da, db, dh0 (or null); dtype, B, S, W,
+    # stream
+    "rglru_scan_bwd": ([_P] * 7 + [_I] * 4 + [_P], ctypes.c_int),
+    "rglru_scan_bwd_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 def library() -> ctypes.CDLL:
     """The kernel's library, built by nvcc on the first call."""
     return _build.load("rglru_scan", _SIGNATURES)
+
+
+def bwd_library() -> ctypes.CDLL:
+    """The backward's library, built by nvcc on the first call."""
+    return _build.load("rglru_scan_bwd", _BWD_SIGNATURES)
 
 
 class Plan(NamedTuple):
@@ -138,3 +151,31 @@ def rglru_scan_kernel(a, b, h0=None):
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err} ({msg})")
     return h
+
+
+def rglru_scan_bwd_kernel(a, h, dy, h0=None):
+    """The gradients of ``rglru_scan_kernel``'s output ``h`` (saved from
+    the forward) against ``dy``: (da, db) in a's dtype and shape, and
+    dh0 fp32 [B, W] when ``h0`` was given (else None)."""
+    _check(a, h, h0)
+    if dy.shape != a.shape or dy.dtype != a.dtype or dy.device != a.device:
+        raise ValueError(f"rglru_scan backward: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} does not match a {tuple(a.shape)} "
+                         f"{a.dtype}")
+    dy = dy.contiguous()
+    B, S, W = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    lib = bwd_library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.rglru_scan_bwd(
+            a.data_ptr(), h.data_ptr(), dy.data_ptr(),
+            None if h0 is None else h0.data_ptr(), da.data_ptr(),
+            db.data_ptr(), None if dh0 is None else dh0.data_ptr(),
+            DTYPES[a.dtype], B, S, W, stream)
+    if err != 0:
+        msg = lib.rglru_scan_bwd_error_string(err).decode()
+        raise RuntimeError(f"rglru_scan backward launch failed: CUDA error "
+                           f"{err} ({msg})")
+    return da, db, dh0

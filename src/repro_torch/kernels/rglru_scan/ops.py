@@ -1,18 +1,54 @@
-"""Public wrapper of the RG-LRU scan kernel.
+"""Public wrapper of the RG-LRU scan kernel and its backward.
 
 A CUDA tensor launches the Hopper kernel (or raises); a tensor on the CPU
-goes to the plain version, ``ref.rglru_scan_ref``. There is no fallback
-from one to the other. ``rglru_scan.launches`` counts the kernel's
-launches, so a run can show that its path went through it.
+goes to the plain version, ``ref.rglru_scan_ref``, which autograd
+differentiates. There is no fallback from one to the other. When autograd
+records (grad enabled and an input that requires grad), the CUDA call
+goes through ``RGLRUScan``, a ``torch.autograd.Function`` whose forward is
+the kernel and whose backward is the backward kernel
+(``csrc/rglru_scan_bwd.cu``). ``rglru_scan.launches`` counts the forward
+kernel's launches and ``rglru_scan.bwd_launches`` the backward's, so a
+run can show that its path went through them.
 """
 from __future__ import annotations
 
 import threading
 
-from repro_torch.kernels.rglru_scan.kernel import rglru_scan_kernel
+import torch
+
+from repro_torch.kernels.rglru_scan.kernel import (
+    rglru_scan_bwd_kernel,
+    rglru_scan_kernel,
+)
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 _count_lock = threading.Lock()
+
+
+def _forward(a, b, h0):
+    out = rglru_scan_kernel(a, b, h0)
+    with _count_lock:
+        rglru_scan.launches += 1
+    return out
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The kernel as an autograd function: forward saves a, h0 and the
+    output h; backward launches the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _forward(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = rglru_scan_bwd_kernel(a, h, dh, h0)
+        with _count_lock:
+            rglru_scan.bwd_launches += 1
+        return da, db, dh0
 
 
 def rglru_scan(a, b, h0=None):
@@ -20,10 +56,11 @@ def rglru_scan(a, b, h0=None):
     or None. Returns [B, S, W] in a's dtype."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
-    out = rglru_scan_kernel(a, b, h0)
-    with _count_lock:
-        rglru_scan.launches += 1
-    return out
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        return RGLRUScan.apply(a, b, h0)
+    return _forward(a, b, h0)
 
 
 rglru_scan.launches = 0
+rglru_scan.bwd_launches = 0

@@ -3,7 +3,9 @@
 
 The JAX oracle runs an associative scan; this one walks S in a plain loop
 with the carry in fp32, the order the kernel uses. The two agree to fp32
-rounding (the scan multiplies the a's in another order).
+rounding (the scan multiplies the a's in another order). Autograd
+differentiates it: the prefixes are stacked, not written into a buffer
+step by step, so its backward stays linear in S.
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
     or None (zeros). Returns every prefix h: [B, S, W] in a's dtype."""
     af, bf = a.float(), b.float()
     h = (torch.zeros_like(af[:, 0]) if h0 is None else h0.float())
-    out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    out = []
     for t in range(a.shape[1]):
         h = af[:, t] * h + bf[:, t]
-        out[:, t] = h
-    return out
+        out.append(h.to(a.dtype))
+    return torch.stack(out, dim=1)

@@ -8,6 +8,8 @@ hybrid, the encoder-decoder (seamless-m4t) and the VLM (llava-next).
     logits, caches = decode_step(model, token, pos, caches, cfg)
     caches = init_decode_caches(cfg, batch, seq_len, device)
     batch = make_batch(cfg, batch, seq_len, generator, device)
+    labels = batch_labels(cfg, batch)
+    loss = loss_fn(logits, labels[:, :logits.shape[1]], aux)
 
 A batch is int32 tokens [B, S], or a tuple for the encoder-decoder
 (frames, tokens) and the VLM (patches, tokens). Caches are one entry per
@@ -92,3 +94,31 @@ def make_batch(cfg: ModelConfig, batch: int, seq_len: int,
         return (vlm.stub_patches(cfg, batch, device=device),
                 tokens(max(seq_len - cfg.num_patches, 1)))
     return tokens(seq_len)
+
+
+def batch_labels(cfg: ModelConfig, batch) -> torch.Tensor:
+    """Next-token labels aligned to the logits of ``forward(batch)``:
+    the tokens rolled by one (the last label is the first token), and
+    -100 (ignored) over the VLM's patches."""
+    if cfg.family == ENCDEC:
+        return torch.roll(batch[1], -1, dims=1)
+    if cfg.family == VLM:
+        patches, tokens = batch
+        pad = torch.full((tokens.shape[0], patches.shape[1]), -100,
+                         dtype=torch.int32, device=tokens.device)
+        return torch.cat([pad, torch.roll(tokens, -1, dims=1)], dim=1)
+    return torch.roll(batch, -1, dims=1)
+
+
+def loss_fn(logits, labels, aux, aux_weight: float = 0.01):
+    """Masked next-token cross entropy (labels < 0 ignored) in fp32: the
+    logsumexp minus the picked logit, summed over the valid labels and
+    divided by their count (at least 1), plus ``aux_weight * aux``."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    valid = labels >= 0
+    lab = torch.where(valid, labels, 0).long()
+    picked = torch.gather(lg, -1, lab[..., None])[..., 0]
+    nll = (lse - picked) * valid.float()
+    loss = nll.sum() / torch.clamp_min(valid.sum(), 1)
+    return loss + aux_weight * aux

@@ -28,8 +28,8 @@ from torch import nn
 from repro_torch.config import ENCDEC, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (MLP, Maker, mlp_apply, rms_norm,
-                                       torch_dtype)
+from repro_torch.models.layers import (MLP, Maker, mlp_apply, remat,
+                                       rms_norm, torch_dtype)
 
 
 class DecCache(NamedTuple):
@@ -105,10 +105,12 @@ def enc_layer_apply(lp: EncoderLayer, x, cfg: ModelConfig):
 
 
 def encode(model: EncDec, frames, cfg: ModelConfig):
-    """frames: [B, Sf, D] stub embeddings -> encoder output [B, Sf, D]."""
+    """frames: [B, Sf, D] stub embeddings -> encoder output [B, Sf, D].
+    Each layer is checkpointed under ``cfg.remat`` when autograd
+    records."""
     x = frames.to(torch_dtype(cfg.dtype)) @ model.enc_in
     for lp in model.enc_layers:
-        x = enc_layer_apply(lp, x, cfg)
+        x = remat(cfg, enc_layer_apply, lp, x, cfg)
     return rms_norm(x, model.enc_norm, cfg.norm_eps)
 
 
@@ -139,13 +141,15 @@ def _dec_layer(lp: DecoderLayer, x, positions, enc_out, cfg: ModelConfig):
 
 
 def forward(model: EncDec, batch, cfg: ModelConfig):
-    """batch: (frames [B, Sf, D], tokens [B, St]) -> logits [B, St, V]."""
+    """batch: (frames [B, Sf, D], tokens [B, St]) -> logits [B, St, V].
+    Encoder and decoder layers are checkpointed under ``cfg.remat`` when
+    autograd records."""
     frames, tokens = batch
     enc_out = encode(model, frames, cfg)
     x = tfm.embed_tokens(model, tokens, cfg)
     positions = tfm.positions_for(x)
     for lp in model.dec_layers:
-        x = _dec_layer(lp, x, positions, enc_out, cfg)
+        x = remat(cfg, _dec_layer, lp, x, positions, enc_out, cfg)
     return tfm.unembed(model, x, cfg)
 
 

@@ -4,7 +4,8 @@ What each function computes is that of ``repro.models.layers``, including
 its conventions: RMSNorm scales by ``1 + gamma`` (zero-centred weights),
 rope rotates interleaved pairs ``x[0::2]``, ``x[1::2]`` over the first
 ``int(Dh * pct) // 2 * 2`` dims, and the MLP applies SiLU in fp32 before
-casting back and gating.
+casting back and gating. ``remat`` is the JAX package's
+``jax.checkpoint`` of a layer under ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import zlib
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -32,7 +34,9 @@ class Maker:
     parameter's values do not depend on the order of construction. The
     distributions are the JAX package's (truncated normal at 2 sigma
     scaled by 1/sqrt(fan_in); 0.02 * N(0, 1) for embeddings); the bits are
-    torch's, not JAX's."""
+    torch's, not JAX's. Parameters need no grad (serving); training turns
+    it on (``model.requires_grad_()``). On the ``meta`` device they are
+    shapes and dtypes only, the step builders' example arguments."""
 
     def __init__(self, seed: int, dtype: torch.dtype, device):
         self.seed = seed
@@ -47,11 +51,15 @@ class Maker:
     def __call__(self, name: str, shape, kind: str = "dense",
                  scale: float = 1.0) -> nn.Parameter:
         shape = tuple(shape)
-        if kind == "zeros":
+        if kind not in ("zeros", "ones", "dense", "embed"):
+            raise ValueError(kind)
+        if self.device.type == "meta":
+            w = torch.empty(shape, dtype=self.dtype, device=self.device)
+        elif kind == "zeros":
             w = torch.zeros(shape, dtype=self.dtype, device=self.device)
         elif kind == "ones":
             w = torch.ones(shape, dtype=self.dtype, device=self.device)
-        elif kind in ("dense", "embed"):
+        else:
             w = torch.empty(shape, dtype=torch.float32, device=self.device)
             g = self._generator(name)
             if kind == "dense":
@@ -61,9 +69,19 @@ class Maker:
             else:
                 w.normal_(0.0, 1.0, generator=g).mul_(0.02)
             w = w.to(self.dtype)
-        else:
-            raise ValueError(kind)
         return nn.Parameter(w, requires_grad=False)
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``cfg.remat`` is
+    set and autograd records: its activations are dropped after the
+    forward and recomputed in the backward, as ``jax.checkpoint`` does in
+    the JAX package (its places: each layer or block of the forward)."""
+    if cfg.remat and torch.is_grad_enabled():
+        # no random op runs inside a layer: no RNG state to replay
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

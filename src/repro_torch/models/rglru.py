@@ -25,8 +25,8 @@ from repro_torch.config import HYBRID, ModelConfig
 from repro_torch.kernels.rglru_scan import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (MLP, Maker, mlp_apply, rms_norm,
-                                       torch_dtype)
+from repro_torch.models.layers import (MLP, Maker, mlp_apply, remat,
+                                       rms_norm, torch_dtype)
 from repro_torch.models.mamba2 import _causal_conv
 
 C_SCALE = 8.0  # RG-LRU "c" constant
@@ -176,11 +176,12 @@ def attn_block_apply(lp: AttnBlock, x, cfg: ModelConfig):
 # Model (python loop over heterogeneous blocks)
 # ---------------------------------------------------------------------------
 def forward(model: Hybrid, tokens, cfg: ModelConfig):
-    """tokens: [B, S] int32 -> logits [B, S, V]."""
+    """tokens: [B, S] int32 -> logits [B, S, V]. Each block is
+    checkpointed under ``cfg.remat`` when autograd records."""
     x = tfm.embed_tokens(model, tokens, cfg)
     for lp in model.blocks:
-        x = (rec_block_apply(lp, x, cfg) if isinstance(lp, RecBlock)
-             else attn_block_apply(lp, x, cfg))
+        x = remat(cfg, rec_block_apply if isinstance(lp, RecBlock)
+                  else attn_block_apply, lp, x, cfg)
     return tfm.unembed(model, x, cfg)
 
 

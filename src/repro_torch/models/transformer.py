@@ -19,7 +19,7 @@ from torch import nn
 from repro_torch.config import DENSE, VLM, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, Maker, apply_rope, mlp_apply,
-                                       rms_norm, torch_dtype)
+                                       remat, rms_norm, torch_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -224,12 +224,16 @@ def positions_for(x: torch.Tensor) -> torch.Tensor:
 
 def forward(model: Transformer, tokens, cfg: ModelConfig,
             extra_embeds=None):
-    """tokens: [B, S_text] int32 -> logits [B, S_total, V]."""
+    """tokens: [B, S_text] int32 -> logits [B, S_total, V]. Each layer
+    is checkpointed under ``cfg.remat`` when autograd records."""
     x = embed_tokens(model, tokens, cfg, extra_embeds)
     positions = positions_for(x)
+
+    def body(lp, x):
+        return layer_apply(lp, x, positions, cfg, window=cfg.sliding_window,
+                           chunk=cfg.attention_chunk)
     for lp in model.layers:
-        x = layer_apply(lp, x, positions, cfg, window=cfg.sliding_window,
-                        chunk=cfg.attention_chunk)
+        x = remat(cfg, body, lp, x)
     return unembed(model, x, cfg)
 
 

@@ -23,6 +23,8 @@ VERBATIM = [
     "core/scheduler.py", "serving/loadgen.py", "serving/admission.py",
     "serving/workers.py", "configs/h2o_danube_3_4b.py",
     "configs/seamless_m4t_medium.py", "configs/llava_next_mistral_7b.py",
+    "data/pipeline.py", "sim/__init__.py", "sim/analytics.py",
+    "sim/fleet.py", "sim/workload.py",
 ]
 
 #: the one function of a copied module that the port repairs

@@ -394,3 +394,155 @@ def test_kernel_rejects_unsupported_head_dim(cuda):
     q = torch.zeros(1, 2, 16, 80, device=cuda)
     with pytest.raises(ValueError, match="head dim 80"):
         ops.flash_attention(q, q, q)
+
+
+# ------------------------------------------------------------- backward
+# The plain backward (autograd of ref.py) against jax.grad of the JAX
+# package's ref.py, and the backward kernel against the plain backward.
+# Cases: every mask, GQA and MQA, Sq != Sk with and without causality, the
+# all-masked rows, head dims 64 to 256
+BWD_CASES = FLASH_CASES + [
+    RAGGED_CASE, MASKED_CASE,
+    (1, 4, 2, 100, 150, 64, dict(causal=False)),
+    (2, 8, 2, 130, 77, 128, {}),
+    (1, 4, 2, 320, 320, 128, dict(chunk=96)),
+    (1, 8, 2, 256, 256, 120, dict(window=96)),
+    (1, 16, 1, 200, 200, 256, dict(window=64)),
+    (2, 16, 16, 48, 1024, 64, dict(causal=False)),
+]
+# the card's train shapes: qwen3-4b's layer (B2 S2048 D128 GQA) and the
+# hybrid's attention block (MQA, D 256, its 2048 window crossed at 2100)
+BWD_TRAIN_CASES = [
+    (2, 32, 8, 2048, 2048, 128, {}),
+    (2, 16, 1, 2100, 2100, 256, dict(window=2048)),
+]
+# the backward's tolerances, on a scaled error: each element against
+# |want| plus the rms of the whole gradient (not of its row, as the
+# forward's: a gradient row can be exactly zero, e.g. dq of the first
+# causal row, whose one weight is 1, and the kernel's rounding there is
+# then all the row has); fp32 1e-4 (the sums run in another order over up
+# to Sq * G terms), bf16 2e-2 (both sides compute in fp32 from the same
+# bf16 inputs and round once). In bf16 the plain backward runs on the
+# inputs upcast to fp32 and its gradients are rounded once: autograd of
+# the bf16 call rounds each query head's dk and dv to bf16 before it sums
+# a kv head's group, a rounding of each addend that the kernel does not
+# make (it sums the group in fp32)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _grad_err(got, want) -> float:
+    """max |got - want| / (|want| + rms of want); a gradient that is zero
+    everywhere (dq and dk where every key is masked) must be zero."""
+    got, want = got.float(), want.float()
+    rms = want.square().mean().sqrt().clamp_min(torch.finfo().tiny)
+    return float(((got - want).abs() / (want.abs() + rms)).max())
+
+
+def _cotangent(case, seed=1):
+    B, H, Kh, Sq, Sk, D, _ = case
+    return np.random.default_rng(seed + Sq).standard_normal(
+        (B, H, Sq, D), dtype=np.float32)
+
+
+def _torch_grads(fn, arrays, dout, dtype, device="cpu", views=False):
+    """(out, dq, dk, dv) of ``fn`` through autograd; ``views``: q, k, v
+    as attend passes them, transposed views of [B, S, heads, D]."""
+    if views:
+        ts = [torch.from_numpy(a).to(device=device, dtype=dtype)
+              .transpose(1, 2).contiguous().transpose(1, 2)
+              for a in arrays]
+    else:
+        ts = _torch(arrays, dtype, device)
+    for t in ts:
+        t.requires_grad_(True)
+    out = fn(*ts)
+    out.backward(torch.from_numpy(dout).to(device=device, dtype=dtype))
+    return (out,) + tuple(t.grad for t in ts)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", BWD_CASES, ids=_case_id)
+def test_ref_backward_matches_jax_grad(case, dtype, jax_flash):
+    """dq, dk, dv of the plain version (autograd) against jax.vjp of the
+    JAX oracle, on the same inputs and cotangent."""
+    import jax
+    _, jref = jax_flash
+    arrays, dout, kw = _numpy_inputs(case), _cotangent(case), case[6]
+    _, *grads = _torch_grads(lambda q, k, v: flash_attention_ref(
+        q, k, v, **kw), arrays, dout, dtype)
+    _, vjp = jax.vjp(lambda q, k, v: jref(q, k, v, **kw),
+                     *_jax(arrays, dtype))
+    want = vjp(*_jax([dout], dtype))
+    for g, w in zip(grads, want):
+        assert g.dtype == dtype and tuple(g.shape) == w.shape
+        scale = max(1.0, float(np.max(np.abs(_f32(w)))))
+        assert np.max(np.abs(_f32(g) - _f32(w))) < TOL[dtype] * scale
+
+
+def test_ref_backward_of_an_all_masked_row():
+    """A row with every key masked got mean(v): its cotangent reaches dv
+    as dO / Sk at every key (summed over the kv head's group), and dq and
+    dk get nothing from it."""
+    arrays, dout = _numpy_inputs(MASKED_CASE), _cotangent(MASKED_CASE)
+    _, dq, dk, dv = _torch_grads(lambda q, k, v: flash_attention_ref(
+        q, k, v, **MASKED_CASE[6]), arrays, dout, torch.float32)
+    B, H, Kh, Sq, Sk, D, _ = MASKED_CASE
+    want_dv = dout.reshape(B, Kh, H // Kh, Sq, D).sum((2, 3)) / Sk
+    np.testing.assert_allclose(
+        _f32(dv), np.broadcast_to(want_dv[:, :, None], (B, Kh, Sk, D)),
+        atol=1e-5)
+    assert float(dq.abs().max()) == 0.0 and float(dk.abs().max()) == 0.0
+
+
+def test_cpu_backward_launches_no_kernel():
+    arrays = _numpy_inputs(RAGGED_CASE)
+    before = (ops.flash_attention.launches, ops.flash_attention.bwd_launches)
+    _torch_grads(lambda q, k, v: ops.flash_attention(q, k, v, window=16),
+                 arrays, _cotangent(RAGGED_CASE), torch.float32)
+    assert (ops.flash_attention.launches,
+            ops.flash_attention.bwd_launches) == before
+
+
+def _hold_grad(got, want, dtype):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _grad_err(got, want) < BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", BWD_CASES + BWD_TRAIN_CASES, ids=_case_id)
+def test_backward_kernel_matches_ref_on_card(case, dtype, cuda):
+    """The backward kernel, reached through autograd on attend's
+    transposed views, against autograd of the plain version; the forward
+    counts one launch and the backward its passes."""
+    from repro_torch.kernels.flash_attention.kernel import BWD_PASSES
+    arrays, dout, kw = _numpy_inputs(case), _cotangent(case), case[6]
+    before = (ops.flash_attention.launches, ops.flash_attention.bwd_launches)
+    out, *grads = _torch_grads(lambda q, k, v: ops.flash_attention(
+        q, k, v, **kw), arrays, dout, dtype, cuda, views=True)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches,
+            ops.flash_attention.bwd_launches) == (before[0] + 1,
+                                                  before[1] + BWD_PASSES)
+    _, *want = _torch_grads(lambda q, k, v: flash_attention_ref(
+        q, k, v, **kw), [_f32(t) for t in _torch(arrays, dtype)],
+        _f32(torch.from_numpy(dout).to(dtype)), torch.float32, cuda,
+        views=True)
+    for g, w in zip(grads, want):
+        _hold_grad(g, w.to(dtype), dtype)
+    assert grads[0].stride() == want[0].stride()    # [B, S, H, D] layout
+
+
+@pytest.mark.cuda
+def test_backward_kernel_all_masked_rows_on_card(cuda):
+    """dv = dO / Sk at every key where every key of a row is masked, and
+    no dq or dk, as the plain backward gives."""
+    arrays, dout = _numpy_inputs(MASKED_CASE), _cotangent(MASKED_CASE)
+    _, dq, dk, dv = _torch_grads(lambda q, k, v: ops.flash_attention(
+        q, k, v, **MASKED_CASE[6]), arrays, dout, torch.float32, cuda)
+    B, H, Kh, Sq, Sk, D, _ = MASKED_CASE
+    want_dv = dout.reshape(B, Kh, H // Kh, Sq, D).sum((2, 3)) / Sk
+    np.testing.assert_allclose(
+        _f32(dv), np.broadcast_to(want_dv[:, :, None], (B, Kh, Sk, D)),
+        atol=1e-5)
+    assert float(dq.abs().max()) == 0.0 and float(dk.abs().max()) == 0.0

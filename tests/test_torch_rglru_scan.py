@@ -338,3 +338,100 @@ def test_kernel_rejects_non_contiguous_input(cuda):
     a = torch.zeros(2, 8, 16, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         ops.rglru_scan(a, a)
+
+
+# ------------------------------------------------------------- backward
+# The plain backward (autograd of ref.py) against jax.grad of the JAX
+# package's oracle, and the backward kernel against the plain backward:
+# with and without h0, S = 1, ragged shapes, the hybrid's train shape,
+# fp32 (the hybrid's gates) and bf16.
+BWD_CASES = RGLRU_CASES[:2] + [RAGGED_CASE, (4, 1, 4096), (2, 97, 4096)]
+BWD_TRAIN_CASE = (2, 2100, 4096)
+# fp32: the oracle's associative scan multiplies in another order (see the
+# module docstring); bf16: one bf16 ulp of the gradients' size
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _grads(fn, arrays, dy, dtype, device="cpu", with_h0=True):
+    a, b, h0 = (torch.from_numpy(x).to(device) for x in arrays)
+    a, b = a.to(dtype).requires_grad_(True), b.to(dtype).requires_grad_(True)
+    h0 = h0.requires_grad_(True) if with_h0 else None
+    out = fn(a, b, h0)
+    out.backward(torch.from_numpy(dy).to(device=device, dtype=dtype))
+    return out, a.grad, b.grad, (h0.grad if with_h0 else None)
+
+
+def _dy(case, seed=3):
+    return np.random.default_rng(seed + sum(case)).standard_normal(
+        case, dtype=np.float32)
+
+
+@pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "no_h0"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_ref_backward_matches_jax_grad(case, with_h0, jax_rglru):
+    """da, db (and dh0) of the plain version against jax.vjp of the JAX
+    oracle; without h0 the oracle gets zeros."""
+    import jax
+    import jax.numpy as jnp
+    arrays, dy = _numpy_inputs(case), _dy(case)
+    _, da, db, dh0 = _grads(rglru_scan_ref, arrays, dy, torch.float32,
+                            with_h0=with_h0)
+    a, b, h0 = (jnp.asarray(x) for x in arrays)
+    if not with_h0:
+        h0 = jnp.zeros_like(h0)
+    _, vjp = jax.vjp(jax_rglru[1], a, b, h0)
+    wa, wb, wh0 = vjp(jnp.asarray(dy))
+    for g, w in ((da, wa), (db, wb)) + (((dh0, wh0),) if with_h0 else ()):
+        assert _max_err(g, w) < TOL * max(1.0, float(np.abs(w).max()))
+
+
+def test_ref_backward_recurrence_by_hand():
+    """g_t = dy_t + a_{t+1} g_{t+1}; db = g; da_t = g_t h_{t-1} (h_{-1} =
+    h0); dh0 = a_0 g_0, in float64 against the plain backward."""
+    case = RAGGED_CASE
+    arrays, dy = _numpy_inputs(case), _dy(case)
+    out, da, db, dh0 = _grads(rglru_scan_ref, arrays, dy, torch.float32)
+    a, _, h0 = (x.astype(np.float64) for x in arrays)
+    h = out.detach().double().numpy()
+    g = np.zeros_like(h0)
+    want_da, want_db = np.zeros_like(a), np.zeros_like(a)
+    for t in range(case[1] - 1, -1, -1):
+        g = dy[:, t] + (a[:, t + 1] * g if t + 1 < case[1] else 0.0)
+        want_db[:, t] = g
+        want_da[:, t] = g * (h[:, t - 1] if t else h0)
+    np.testing.assert_allclose(db.numpy(), want_db, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(da.numpy(), want_da, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(dh0.numpy(), a[:, 0] * g, atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_cpu_backward_launches_no_kernel():
+    before = (ops.rglru_scan.launches, ops.rglru_scan.bwd_launches)
+    _grads(ops.rglru_scan, _numpy_inputs(RAGGED_CASE), _dy(RAGGED_CASE),
+           torch.float32)
+    assert (ops.rglru_scan.launches, ops.rglru_scan.bwd_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "no_h0"])
+@pytest.mark.parametrize("case", BWD_CASES + [BWD_TRAIN_CASE], ids=str)
+def test_backward_kernel_matches_ref_on_card(case, with_h0, dtype, cuda):
+    """The backward kernel through autograd against autograd of the plain
+    version, each gradient within BWD_TOL of max(1, its largest value);
+    one forward and one backward launch."""
+    arrays, dy = _numpy_inputs(case), _dy(case)
+    before = (ops.rglru_scan.launches, ops.rglru_scan.bwd_launches)
+    got = _grads(ops.rglru_scan, arrays, dy, dtype, cuda, with_h0)
+    torch.cuda.synchronize()
+    assert (ops.rglru_scan.launches,
+            ops.rglru_scan.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = _grads(rglru_scan_ref, arrays, dy, dtype, cuda, with_h0)
+    for g, w in zip(got[1:], want[1:]):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = max(1.0, float(w.float().abs().max()))
+        assert float((g.float() - w.float()).abs().max()) < \
+            BWD_TOL[dtype] * scale

@@ -269,7 +269,9 @@ def test_serve_pair_e_on_cpu():
 
 def test_port_imports_no_jax_and_no_reference_package():
     """In a fresh interpreter (this one has loaded jax), importing the
-    port's entry points loads no jax and no module of ``repro``."""
+    port's entry points loads no jax and no module of ``repro``, nor
+    ``msgpack`` (the checkpoint module imports it when it writes or reads
+    a file: the card's machine does not have it)."""
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.serving.engine, "
@@ -286,9 +288,14 @@ def test_port_imports_no_jax_and_no_reference_package():
         "repro_torch.core.faults, repro_torch.core.profile_store, "
         "repro_torch.core.jobstore, repro_torch.core.scheduler, "
         "repro_torch.serving.loadgen, repro_torch.serving.admission, "
-        "repro_torch.serving.workers\n"
+        "repro_torch.serving.workers, repro_torch.launch.train, "
+        "repro_torch.launch.steps, repro_torch.optim.adamw, "
+        "repro_torch.checkpoint.ckpt, repro_torch.data.pipeline, "
+        "repro_torch.sim.workload, repro_torch.sim.fleet, "
+        "repro_torch.sim.analytics\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+        "or m == 'msgpack')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code],

@@ -2,12 +2,11 @@
 
 A CUDA tensor launches the Hopper kernel (or raises); a tensor on the CPU
 goes to the plain version, ``ref.flash_attention_ref``, which autograd
-differentiates. There is no fallback from one to the other. When autograd
-records (grad enabled and an input that requires grad), the CUDA call
+differentiates. There is no fallback from one to the other. A CUDA call
 goes through ``FlashAttention``, a ``torch.autograd.Function`` whose
 forward is the kernel and whose backward is the backward kernel
-(``csrc/flash_attention_bwd.cu``); otherwise it launches the kernel
-directly, so serving pays no autograd bookkeeping.
+(``csrc/flash_attention_bwd.cu``); where autograd does not record
+(serving runs under ``inference_mode``) it builds no graph.
 
 ``flash_attention.launches`` counts the forward kernel's launches, so a
 run can show that its path went through it, and
@@ -71,10 +70,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    chunk=chunk, scale=scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, window, chunk, scale)
-    return _forward(q, k, v, causal, window, chunk, scale)
+    return FlashAttention.apply(q, k, v, causal, window, chunk, scale)
 
 
 flash_attention.launches = 0

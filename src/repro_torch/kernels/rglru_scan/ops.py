@@ -2,11 +2,11 @@
 
 A CUDA tensor launches the Hopper kernel (or raises); a tensor on the CPU
 goes to the plain version, ``ref.rglru_scan_ref``, which autograd
-differentiates. There is no fallback from one to the other. When autograd
-records (grad enabled and an input that requires grad), the CUDA call
+differentiates. There is no fallback from one to the other. A CUDA call
 goes through ``RGLRUScan``, a ``torch.autograd.Function`` whose forward is
 the kernel and whose backward is the backward kernel
-(``csrc/rglru_scan_bwd.cu``). ``rglru_scan.launches`` counts the forward
+(``csrc/rglru_scan_bwd.cu``); where autograd does not record it builds no
+graph. ``rglru_scan.launches`` counts the forward
 kernel's launches and ``rglru_scan.bwd_launches`` the backward's, so a
 run can show that its path went through them.
 """
@@ -56,10 +56,7 @@ def rglru_scan(a, b, h0=None):
     or None. Returns [B, S, W] in a's dtype."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (a, b, h0)):
-        return RGLRUScan.apply(a, b, h0)
-    return _forward(a, b, h0)
+    return RGLRUScan.apply(a, b, h0)
 
 
 rglru_scan.launches = 0

@@ -51,9 +51,14 @@ def train(arch: str, steps: int = 20, batch: int = 8, seq: int = 128,
           reduced: bool = True, seed: int = 0, log_every: int = 5,
           ckpt_path: str = "", device="cuda", model=None, on_step=None):
     """Train ``arch`` for ``steps`` steps of the synthetic pipeline's
-    batches; returns the losses. ``model`` reuses weights already built
-    (else they come from ``seed``); ``on_step(step, metrics)`` sees each
-    step's metrics after it."""
+    batches; returns the losses, as the JAX package's driver does.
+
+    Two options the JAX package's driver lacks, for a caller that checks
+    the run (``chip_smoke.py``'s train phase): ``model`` trains weights
+    the caller built and keeps (else they come from ``seed``), so it can
+    compare them before and after; ``on_step(step, metrics)`` is called
+    after each step with its metrics, so it can time the steps and read
+    each step's ``grad_norm`` and ``lr``."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()

@@ -72,12 +72,22 @@ class Maker:
         return nn.Parameter(w, requires_grad=False)
 
 
+def _records(args) -> bool:
+    """Whether autograd records a call on ``args``: grad is enabled and a
+    tensor, or a parameter of a module, among them requires grad."""
+    return torch.is_grad_enabled() and any(
+        a.requires_grad if isinstance(a, torch.Tensor) else
+        isinstance(a, nn.Module) and any(p.requires_grad
+                                         for p in a.parameters())
+        for a in args)
+
+
 def remat(cfg, fn, *args):
     """``fn(*args)``, under activation checkpointing when ``cfg.remat`` is
     set and autograd records: its activations are dropped after the
     forward and recomputed in the backward, as ``jax.checkpoint`` does in
     the JAX package (its places: each layer or block of the forward)."""
-    if cfg.remat and torch.is_grad_enabled():
+    if cfg.remat and _records(args):
         # no random op runs inside a layer: no RNG state to replay
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)

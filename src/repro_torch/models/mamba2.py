@@ -149,10 +149,11 @@ def _ssd_chunked(xh, dt, A, B_, C_, chunk: int):
         att = C_c @ B_c.transpose(1, 2)                # [B,l,m]
         # "blm,blmh,bmhp->blhp": [l,m] x [m,p] per (b, h), the products
         # in the same order either way. Autograd keeps exp's output and
-        # the products' operands, so it gets new tensors; without it one
-        # [B,H,l,m] buffer is reused, which stays in L2 (out of place,
-        # mamba2-2.7b's prefill at B2 S2048 took 4.5 % longer on an H100)
-        if torch.is_grad_enabled():
+        # the products' operands, so where it records it gets new
+        # tensors; elsewhere one [B,H,l,m] buffer is reused, which stays
+        # in L2 (out of place, mamba2-2.7b's prefill at B2 S2048 took
+        # 4.5 % longer on an H100)
+        if Lmat.requires_grad or att.requires_grad:
             Lmat = Lmat.exp() * dt_c[..., None, :] * att[:, None]
         else:
             Lmat = Lmat.exp_().mul_(dt_c[..., None, :]).mul_(att[:, None])

@@ -11,13 +11,22 @@ test names bf16.
 
 Tolerances. The loss is held to the atol of each family's logits
 (``tests/test_torch_models.py``, ``tests/test_torch_encdec_vlm.py``):
-5e-4, seamless-m4t 5e-3. A gradient is held to the same atol times the
-largest gradient of the model (at least 1): gradients are not on the
-logits' scale (reduced seamless's reach 128 and llava's 22, where a
-relative 1e-4 of fp32 summation order is 1e-2), and the largest one sets
-what fp32 rounding in a sum over the batch can reach. A convention slip
-(a missing scale, a dropped mask, a transposed weight) moves gradients by
-a good part of their size.
+5e-4, seamless-m4t 5e-3. Each parameter's gradient is held on its own
+size: the norm of its difference from the JAX package's within a
+relative tolerance of the JAX gradient's norm, so a gradient that is cut
+off (a stray detach) or zero fails whatever its size. That tolerance is
+the family's atol, 5e-4, for every family but seamless-m4t; the worst
+tensor sits at 2.4e-4 (llava's). Reduced seamless is ill-conditioned (its
+decoder's attention logits have a standard deviation near 50,
+``tests/test_torch_encdec_vlm.py``), and fp32 rounding reaches its
+encoder's gradients through the near-one-hot cross-attention: against
+float64 gradients of the same weights the JAX package's fp32 ones are off
+by 8.1e-3 of their norm and the port's by 6.5e-3 (``enc_layers.0.attn.wq``),
+and the two frameworks by 5.6e-3. Its gradients are held to 2e-2,
+about twice the larger float64 gap, as its logits are
+(``test_seamless_gradient_tolerance_is_the_float64_gap``). A convention
+slip (a missing scale, a dropped mask, a transposed weight) moves
+gradients by a good part of their size.
 """
 import collections
 from unittest import mock
@@ -41,18 +50,19 @@ from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.config import InputShape, get_config  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTextPipeline  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
-from repro_torch.models import api, mamba2, vlm  # noqa: E402
+from repro_torch.models import api, layers, mamba2, vlm  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
-#: (seq, atol) per family's reduced config: the dense decoder, the SSM at
-#: two 32-token SSD chunks, the hybrid, the encoder-decoder (over its 32
-#: frames) and the VLM (16 patches + 32 tokens)
+#: (seq, loss atol, gradient rtol) per family's reduced config: the dense
+#: decoder, the SSM at two 32-token SSD chunks, the hybrid, the
+#: encoder-decoder (over its 32 frames) and the VLM (16 patches + 32
+#: tokens)
 FAMILIES = {
-    "qwen3-4b": (48, 5e-4),
-    "mamba2-2.7b": (64, 5e-4),
-    "recurrentgemma-9b": (48, 5e-4),
-    "seamless-m4t-medium": (24, 5e-3),
-    "llava-next-mistral-7b": (32, 5e-4),
+    "qwen3-4b": (48, 5e-4, 5e-4),
+    "mamba2-2.7b": (64, 5e-4, 5e-4),
+    "recurrentgemma-9b": (48, 5e-4, 5e-4),
+    "seamless-m4t-medium": (24, 5e-3, 2e-2),
+    "llava-next-mistral-7b": (32, 5e-4, 5e-4),
 }
 
 
@@ -99,19 +109,25 @@ def _port_value_and_grad(cfg, model, batch, labels):
     return float(loss.detach()), dict(zip(names, grads))
 
 
-def _hold_grads(grads, want, atol):
+def _rel_err(g, want):
+    """|g - want| / |want| in the Frobenius norm, in float64."""
+    g, want = g.double(), want.double()
+    return float((g - want).norm() / want.norm())
+
+
+def _hold_grads(grads, want, rtol):
     assert set(grads) == set(want)
-    scale = max(1.0, max(float(w.abs().max()) for w in want.values()))
     for name, g in grads.items():
         assert g.dtype == want[name].dtype and g.shape == want[name].shape
-        err = float((g - want[name]).abs().max())
-        assert err <= atol * scale, (name, err, atol * scale)
+        assert float(want[name].norm()) > 0, name
+        err = _rel_err(g, want[name])
+        assert err <= rtol, (name, err, rtol)
 
 
 # --------------------------------------------------- gradients per family
 @pytest.mark.parametrize("name", sorted(FAMILIES))
 def test_loss_and_gradients_match_jax(name):
-    seq, atol = FAMILIES[name]
+    seq, atol, rtol = FAMILIES[name]
     jcfg, jparams, cfg, model = _bridged(name)
     batch, jbatch = _batch(cfg, seq)
     labels = api.batch_labels(cfg, batch)
@@ -120,7 +136,47 @@ def test_loss_and_gradients_match_jax(name):
     want_loss, want = _jax_value_and_grad(jcfg, jparams, jbatch, jlabels)
     loss, grads = _port_value_and_grad(cfg, model, batch, labels)
     assert abs(loss - want_loss) <= atol
-    _hold_grads(grads, want, atol)
+    _hold_grads(grads, want, rtol)
+
+
+def test_hold_grads_fails_a_gradient_cut_off():
+    """The per-tensor hold fails a tensor whose gradient is zero or
+    scaled, however small its gradient is beside the model's largest."""
+    want = {"big": torch.full((3,), 100.0), "small": torch.full((3,), 1e-3)}
+    _hold_grads({"big": want["big"], "small": want["small"] * 1.0001},
+                want, 5e-4)
+    for bad in (torch.zeros(3), want["small"] * 1.01):
+        with pytest.raises(AssertionError):
+            _hold_grads({"big": want["big"], "small": bad}, want, 5e-4)
+
+
+def test_seamless_gradient_tolerance_is_the_float64_gap():
+    """The reason for seamless's gradient tolerance: against float64
+    gradients of the same weights (the port's, with every fp32 cast kept
+    in float64), the JAX package's fp32 gradients and the port's each lie
+    within half of it, tensor by tensor; the losses within the loss
+    atol."""
+    name = "seamless-m4t-medium"
+    seq, atol, rtol = FAMILIES[name]
+    jcfg, jparams, cfg, model = _bridged(name)
+    batch, jbatch = _batch(cfg, seq)
+    labels = api.batch_labels(cfg, batch)
+    want_loss, want = _jax_value_and_grad(
+        jcfg, jparams, jbatch, japi.batch_labels(jcfg, jbatch))
+    loss, grads = _port_value_and_grad(cfg, model, batch, labels)
+    orig = torch.Tensor.float
+    with mock.patch.object(torch.Tensor, "float", lambda t, *a, **k: t if
+                           t.dtype == torch.float64 else orig(t, *a, **k)):
+        exact_loss, exact = _port_value_and_grad(
+            cfg.replace(dtype="float64"), model.double(),
+            tuple(t.double() if t.is_floating_point() else t for t in batch),
+            labels)
+    assert all(g.dtype == torch.float64 for g in exact.values())
+    for got in (want, grads):
+        gaps = {n: _rel_err(g, exact[n]) for n, g in got.items()}
+        assert max(gaps.values()) <= rtol / 2, max(gaps.items(),
+                                                    key=lambda i: i[1])
+    assert max(abs(want_loss - exact_loss), abs(loss - exact_loss)) <= atol
 
 
 @pytest.mark.parametrize("name", sorted(FAMILIES))
@@ -131,7 +187,7 @@ def test_remat_gives_the_same_gradients(name):
     buffers lie elsewhere, and the CPU's matrix products may take
     another summation order for other addresses: tied embeddings' sums
     moved by 1 ulp in one run of many)."""
-    seq, _ = FAMILIES[name]
+    seq = FAMILIES[name][0]
     out = []
     for remat in (False, True):
         _, _, cfg, model = _bridged(name, remat=remat)
@@ -148,7 +204,7 @@ def test_remat_gives_the_same_gradients(name):
 def test_remat_recomputes_each_layer_once():
     """Under remat each layer's forward runs twice a step (the forward
     and its recompute in the backward); without it, once."""
-    seq, _ = FAMILIES["qwen3-4b"]
+    seq = FAMILIES["qwen3-4b"][0]
     calls = collections.Counter()
     real = api.transformer.layer_apply
 
@@ -163,6 +219,31 @@ def test_remat_recomputes_each_layer_once():
             _port_value_and_grad(cfg, model, batch,
                                  api.batch_labels(cfg, batch))
         assert sorted(calls.values()) == [want] * cfg.num_layers
+
+
+@pytest.mark.parametrize("name", ["qwen3-4b", "mamba2-2.7b"])
+def test_remat_only_where_autograd_records(name):
+    """``remat`` checkpoints a layer only where autograd records: with
+    grad enabled but no parameter or input that requires grad (a forward
+    outside ``no_grad``), each layer runs once, unwrapped, and gives the
+    same logits bit for bit."""
+    seq = FAMILIES[name][0]
+    _, _, cfg, model = _bridged(name, remat=True)
+    batch, _ = _batch(cfg, seq)
+    wrapped = collections.Counter()
+    real = layers.checkpoint
+
+    def counted(fn, *a, **k):
+        wrapped[fn.__name__] += 1
+        return real(fn, *a, **k)
+    with mock.patch.object(layers, "checkpoint", counted):
+        assert torch.is_grad_enabled()
+        logits = api.forward(model, batch, cfg)[0]
+        assert not wrapped and logits.grad_fn is None
+        model.requires_grad_(True)
+        again = api.forward(model, batch, cfg)[0]
+    assert sum(wrapped.values()) == cfg.num_layers
+    assert torch.equal(logits, again.detach())
 
 
 def test_loss_fn_matches_jax_with_ignored_labels():
@@ -282,7 +363,10 @@ def test_adamw_matches_jax(pdtype, moments):
           shapes.items()}
     tdt, jdt = getattr(torch, pdtype), jnp.dtype(pdtype)
     mdt_t, mdt_j = getattr(torch, moments), jnp.dtype(moments)
-    params = {n: torch.from_numpy(v).to(tdt) for n, v in p0.items()}
+    # the port updates in place: its parameters get their own memory (on
+    # the CPU, jnp.asarray may share a numpy array's buffer, and so may
+    # torch.from_numpy, so the update would also move JAX's copy)
+    params = {n: torch.from_numpy(v.copy()).to(tdt) for n, v in p0.items()}
     jparams = {n: jnp.asarray(v).astype(jdt) for n, v in p0.items()}
     state = adamw.adamw_init(params, moments_dtype=mdt_t)
     jstate = jadamw.adamw_init(jparams, moments_dtype=mdt_j)

@@ -13,11 +13,13 @@ Phases, each of which exits non-zero on failure:
    HGMMA (wgmma) and every bf16 instance of the decode kernel (64, 120,
    128, 256) HMMA (mma.sync) in ``cuobjdump -sass``, and none of them,
    nor either instance of the rglru_scan kernel (fp32, bf16; no tensor
-   cores), may spill in ptxas's report; the two backward sources
-   (``flash_attention_bwd.cu``: 3 passes x 5 head dims x 2 types;
-   ``rglru_scan_bwd.cu``: 2 types) are built with them, and each
-   instance's registers and spills are printed (a spill is reported, not
-   failed);
+   cores), may spill in ptxas's report; the two backward sources are
+   built with them: every bf16 instance of ``flash_attention_bwd.cu``
+   (the dQ kernel at head dims 64, 96, 120, 128 with one or two
+   warpgroups and 256 with one; the dK/dV kernel at the five head dims)
+   must show HGMMA and no spill; its fp32 instances (3 passes x 5 head
+   dims, CUDA cores) and ``rglru_scan_bwd.cu``'s 2 have their registers
+   and spills printed (a spill is reported, not failed);
 3. kernels: flash_attention, decode_attention and rglru_scan, each
    against its plain PyTorch version on the card, at the test shapes, the
    shapes the paths give them (flash also on the paths' own layout:
@@ -46,8 +48,10 @@ Phases, each of which exits non-zero on failure:
    D 120 and the train shapes (qwen3-4b's layer B2 S2048 D128 and the
    hybrid's attention block at S 2100 across its 2048 window), in fp32
    and bf16 (each gradient within 1e-4 / 2e-2 of |plain| + its rms; the
-   plain version runs in fp32 on the same inputs and rounds once);
-   rglru_scan with and without h0, at S = 1, ragged, and the hybrid's
+   plain version runs in fp32 on the same inputs and rounds once; the
+   launch plan and exact kernel counts, 2 a call in bf16 and 3 in fp32;
+   at the bf16 train shapes a second call must give bitwise-equal
+   gradients); rglru_scan with and without h0, at S = 1, ragged, and the hybrid's
    [2, 2100, 4096] (fp32 and bf16); the backward kernel's time, the
    plain backward's, SDPA's backward (flash only) and the bound;
 4. train: (a) qwen3-4b at full width cut to 2 layers and (c)
@@ -55,8 +59,8 @@ Phases, each of which exits non-zero on failure:
    B2 S2048 / S2100, one step's loss and every parameter's gradient
    through the kernels against the same step on the plain versions
    (each gradient within 5e-2 of its norm), launches exact (flash twice
-   a layer under remat, its backward 3 kernels a call; rglru_scan's
-   backward once a rec block); (b) full-width, full-depth qwen3-4b
+   a layer under remat, its backward 2 kernels a call in bf16;
+   rglru_scan's backward once a rec block); (b) full-width, full-depth qwen3-4b
    (remat on): 4 steps of the synthetic pipeline through
    ``launch.train.train`` at B2 S2048 (B1 if the reckoned peak does not
    fit), finite losses and grad norms, parameters moved (how many
@@ -153,9 +157,10 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # (a long row's outputs are about its length ** -0.5, far under 2e-2)
 SCALED_TOL = 2 ** -6
 # the fields of a kernel's plan that a case's line shows (decode's split
-# plan, rglru_scan's scan plan)
+# plan, rglru_scan's scan plan, flash backward's launch plan)
 PLAN_SHOWN = ("splits", "split_len", "tw", "nseg", "threads", "blocks",
-              "ctas", "stages", "smem_bytes", "partial_bytes")
+              "ctas", "stages", "smem_bytes", "partial_bytes",
+              "dq_warpgroups", "dq_ctas", "head_split", "kv_ctas")
 RGLRU_TOL = 1e-4
 HI, LO, HYB = "qwen3-4b", "stablelm-1.6b", "recurrentgemma-9b"
 SSM_LO, GRANITE = "mamba2-2.7b", "granite-20b"    # pairs A and B
@@ -640,15 +645,21 @@ def check_flash_bwd_case(torch, K, case, dtype, seed):
     plain version: in fp32 on the same inputs (bf16 upcast), its
     gradients rounded once to the input type (autograd of the bf16 call
     would round each query head's dk and dv before summing the group).
-    Times the backward kernel alone, the plain version's backward and
-    SDPA's backward (kv heads expanded outside; a yardstick only)."""
+    The kernels counted must be the library's and the plan's for the
+    dtype; at the bf16 train shapes a second call must give bitwise-equal
+    gradients. Times the backward kernel alone, the plain version's
+    backward and SDPA's backward (kv heads expanded outside; a yardstick
+    only)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (
-        BWD_PASSES, bwd_library, flash_attention_bwd_kernel)
-    if bwd_library().flash_attention_bwd_passes() != BWD_PASSES:
-        raise AssertionError(f"the binding counts {BWD_PASSES} backward "
-                             f"kernels a call; the library launches "
-                             f"{bwd_library().flash_attention_bwd_passes()}")
+        BWD_PASSES, DTYPES, bwd_library, bwd_plan,
+        flash_attention_bwd_kernel)
+    need = BWD_PASSES[dtype]
+    lib_passes = bwd_library().flash_attention_bwd_passes(DTYPES[dtype])
+    if lib_passes != need:
+        raise AssertionError(f"the binding counts {need} backward kernels "
+                             f"a call in {dtype}; the library launches "
+                             f"{lib_passes}")
     ops, ref = K["flash_attention"]
     B, H, Kh, Sq, Sk, D, kw = case
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -661,6 +672,16 @@ def check_flash_bwd_case(torch, K, case, dtype, seed):
     out = ops.flash_attention(*leaves, **kw)
     grads = torch.autograd.grad(out, leaves, dout)
     passes = K["launchers"]["flash_attention"].bwd_launches - before
+    bitwise = None
+    if dtype == torch.bfloat16 and case in (QWEN_TRAIN, HYB_TRAIN):
+        again = torch.autograd.grad(ops.flash_attention(*leaves, **kw),
+                                    leaves, dout)
+        bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del again
+        if not bitwise:
+            raise AssertionError(f"flash_attention backward {case[:6]} "
+                                 f"bf16: two calls gave different "
+                                 f"gradients")
     f32 = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
     want = torch.autograd.grad(ref.flash_attention_ref(*f32, **kw), f32,
                                dout.float())
@@ -668,11 +689,11 @@ def check_flash_bwd_case(torch, K, case, dtype, seed):
     label = f"flash_attention backward {case[:6]} {kw} {name} BSHD views"
     errs = [grad_err(torch, got, w.to(dtype))
             for got, w in zip(grads, want)]
-    if passes != BWD_PASSES or any(
+    if passes != need or any(
             got.dtype != dtype or got.shape != t.shape
             for got, t in zip(grads, (q, k, v))):
         raise AssertionError(f"{label}: {passes} backward kernels (need "
-                             f"{BWD_PASSES}) or gradients of the wrong "
+                             f"{need}) or gradients of the wrong "
                              f"type or shape")
     if not max(errs) < BWD_TOL[name]:
         raise AssertionError(f"{label}: scaled error of dq, dk, dv {errs} "
@@ -702,9 +723,11 @@ def check_flash_bwd_case(torch, K, case, dtype, seed):
                                     retain_graph=True),
         lambda: torch.autograd.grad(lib_out, lib_in, dout,
                                     retain_graph=True),
-        2 if Sq >= 2048 else 10, bound,
+        10, bound,
         {"shape": list(case[:6]), "kw": kw, "dtype": name,
-         "layout": "BSHD views", "grad_errs": errs, "passes": passes},
+         "layout": "BSHD views", "grad_errs": errs, "passes": passes,
+         "bitwise_repeat": bitwise,
+         "plan": bwd_plan(B, H, Kh, Sq, Sk, D, dtype)._asdict()},
         plain_n=1)
     del plain_out, lib_out
     return rec
@@ -840,8 +863,8 @@ def train_full(torch, K):
     """Full-width, full-depth qwen3-4b: TRAIN_STEPS steps of the
     synthetic pipeline through ``launch.train.train`` (AdamW, remat on),
     with its launches counted: flash's forward twice per layer and step
-    (the forward and its recompute), its backward BWD_PASSES kernels per
-    layer and step. Fails on a loss or grad_norm that is not finite or
+    (the forward and its recompute), its backward ``BWD_PASSES[bf16]``
+    kernels per layer and step. Fails on a loss or grad_norm that is not finite or
     if no parameter moved; prints how many parameter tensors changed
     (the warmup's lr, 3e-6 to 1.2e-5, is under the bf16 spacing of most
     weights; the norm gains start at zero and must move), the time per
@@ -896,7 +919,8 @@ def train_full(torch, K):
     step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
     L = cfg.num_layers
     need = {"flash_attention": 2 * L * TRAIN_STEPS,
-            "flash_attention_bwd": BWD_PASSES * L * TRAIN_STEPS,
+            "flash_attention_bwd": (BWD_PASSES[torch.bfloat16] * L
+                                    * TRAIN_STEPS),
             "decode_attention": 0, "rglru_scan": 0, "rglru_scan_bwd": 0}
     rec = {"model": HI, "parameters": n_params, "layers": L,
            "batch": batch, "seq": TRAIN_S, "steps": TRAIN_STEPS,
@@ -938,7 +962,7 @@ def reset_launches(K) -> None:
 
 def read_launches(K) -> dict:
     """Each kernel's launches since the last reset, and its backward's
-    (``<name>_bwd``: kernels launched, flash's BWD_PASSES a call)."""
+    (``<name>_bwd``: kernels launched, flash's ``BWD_PASSES`` a call)."""
     out = {name: fn.launches for name, fn in K["launchers"].items()}
     out.update({f"{name}_bwd": fn.bwd_launches
                 for name, fn in K["launchers"].items()
@@ -1831,37 +1855,44 @@ def ops_recover(torch, K, db):
 
 # the instances the build phase checks in each library: the kernel's
 # mangled name, how to label an instance, the SASS opcode it must show
-# (None: no tensor cores), and how many instances there are. flash and
-# decode: their bf16 tensor-core instances; rglru_scan: both of its own;
-# the backward kernels: every instance (flash's 3 passes x 5 head dims x
-# 2 types), whose spills are reported, not failed
+# (None: no tensor cores), how many instances there are, and whether a
+# spill fails the build. flash and decode: their bf16 tensor-core
+# instances; rglru_scan: both of its own; flash's backward: its bf16
+# instances (dQ at D 64, 96, 120, 128 x 1 or 2 warpgroups and D 256 x 1;
+# dK/dV at the 5 head dims), then its fp32 ones (3 passes x 5 head dims,
+# CUDA cores) and rglru_scan's backward, whose spills are reported
 INSTANCES = {
     "flash_attention": (r"flash_fwd_tcILi(\d+)ELi(\d+)E",
                         lambda t: f"D{t.group(1)} x{t.group(2)} warpgroups",
-                        "HGMMA", 10),
+                        "HGMMA", 10, True),
     "decode_attention": (r"decode_split_tcILi(\d+)E",
-                         lambda t: f"D{t.group(1)}", "HMMA", 4),
+                         lambda t: f"D{t.group(1)}", "HMMA", 4, True),
     "rglru_scan": (r"rglru_scan_splitI(f|13__nv_bfloat16)E",
                    lambda t: "fp32" if t.group(1) == "f" else "bf16",
-                   None, 2),
+                   None, 2, True),
     "flash_attention_bwd": (
-        r"(flash_bwd_\w+?)I(f|13__nv_bfloat16)Li(\d+)E",
-        lambda t: (f"{t.group(1)} {'fp32' if t.group(2) == 'f' else 'bf16'}"
-                   f" D{t.group(3)}"), None, 30),
+        r"flash_bwd_(dq|dkdv)_tcILi(\d+)E(?:Li(\d+)E)?",
+        lambda t: (f"{t.group(1)} bf16 D{t.group(2)}"
+                   + (f" x{t.group(3)} warpgroups" if t.group(3) else "")),
+        "HGMMA", 14, True),
+    "flash_attention_bwd fp32": (
+        r"(flash_bwd_(?:stats|dkdv|dq))IfLi(\d+)E",
+        lambda t: f"{t.group(1)} fp32 D{t.group(2)}", None, 15, False),
     "rglru_scan_bwd": (r"rglru_scan_bwd_kernelI(f|13__nv_bfloat16)E",
                        lambda t: "fp32" if t.group(1) == "f" else "bf16",
-                       None, 2),
+                       None, 2, False),
 }
 
 
 def instance_check(lib, kernel: str) -> dict:
-    """The checked instances of ``kernel`` in the built library:
-    registers and spill bytes from ptxas's ``-v`` report beside it, and
-    the count of its tensor-core instruction (flash: HGMMA, wgmma;
-    decode: HMMA, mma.sync) in ``cuobjdump -sass``. Fails if an instance
-    is missing, spills (a backward kernel's spill is only reported), or
-    has no tensor-core instruction where one is expected."""
-    pattern, label, opcode, expect = INSTANCES[kernel]
+    """The checked instances ``kernel`` (an ``INSTANCES`` key) in the
+    built library: registers and spill bytes from ptxas's ``-v`` report
+    beside it, and the count of its tensor-core instruction (flash and
+    its bf16 backward: HGMMA, wgmma; decode: HMMA, mma.sync) in
+    ``cuobjdump -sass``. Fails if an instance is missing, spills where
+    that fails the build, or has no tensor-core instruction where one is
+    expected."""
+    pattern, label, opcode, expect, spill_fails = INSTANCES[kernel]
 
     def instance(symbol):
         t = re.search(pattern, symbol)
@@ -1887,7 +1918,7 @@ def instance_check(lib, kernel: str) -> dict:
         if m:
             inst[name]["registers"] = int(m.group(1))
     bad = {k: v for k, v in inst.items()
-           if v["spill_bytes"] and kernel not in BWD_SOURCES}
+           if v["spill_bytes"] and spill_fails}
     if opcode is None:
         if len(inst) != expect or bad:
             raise AssertionError(f"{kernel} instances {inst}: expected "
@@ -1907,7 +1938,7 @@ def instance_check(lib, kernel: str) -> dict:
     bad = {k: v for k, v in inst.items()
            if v["spill_bytes"] or not v[opcode.lower()]}
     if len(inst) != expect or bad:
-        raise AssertionError(f"{kernel} bf16 instances {inst}: expected "
+        raise AssertionError(f"{kernel} instances {inst}: expected "
                              f"{expect}, each with {opcode} and no spills")
     return inst
 
@@ -1958,12 +1989,12 @@ def main() -> int:
     log(f"[build] {', '.join(k + '.cu' for k in KERNELS + BWD_SOURCES)} "
         f"built with nvcc for sm_90a in {time.perf_counter() - t0:.1f} s "
         f"(in parallel)")
-    for name, (_, _, opcode, _) in INSTANCES.items():
+    for name, (_, _, opcode, _, spill_fails) in INSTANCES.items():
         what = "bf16 instances (tensor cores)" if opcode else "instances"
-        if name in BWD_SOURCES:
+        if not spill_fails:
             what += " (a spill is reported, not failed)"
-        log(f"  {name} {what}: " + json.dumps(instance_check(libs[name],
-                                                                name)))
+        lib = libs[name.split()[0]]
+        log(f"  {name} {what}: " + json.dumps(instance_check(lib, name)))
 
     bf16, f32 = torch.bfloat16, torch.float32
     seed = 0
@@ -2062,16 +2093,17 @@ def main() -> int:
         "one step's gradients, kernels vs plain versions")
     from repro_torch.config import get_config
     from repro_torch.kernels.flash_attention.kernel import BWD_PASSES
+    bwd_bf16 = BWD_PASSES[bf16]
     train_grads_check(
         torch, K, "qwen3-4b (2 layers)",
         get_config(HI).replace(num_layers=2), TRAIN_B, TRAIN_S,
-        {"flash_attention": 2 * 2, "flash_attention_bwd": 2 * BWD_PASSES,
+        {"flash_attention": 2 * 2, "flash_attention_bwd": 2 * bwd_bf16,
          "decode_attention": 0, "rglru_scan": 0, "rglru_scan_bwd": 0})
     free(torch)
     train_hyb = train_grads_check(
         torch, K, "recurrentgemma-9b (rec, rec, attn)",
         get_config(HYB).replace(num_layers=3), TRAIN_B, HYB_TRAIN_S,
-        {"flash_attention": 2, "flash_attention_bwd": BWD_PASSES,
+        {"flash_attention": 2, "flash_attention_bwd": bwd_bf16,
          "rglru_scan": 2 * 2, "rglru_scan_bwd": 2, "decode_attention": 0})
     free(torch)
     log(f"[train] (b) qwen3-4b at full width and depth: {TRAIN_STEPS} "
@@ -2234,7 +2266,7 @@ def main() -> int:
             bwd[(QWEN_TRAIN[:6], bf16)],
             f"B2 H32 Kh8 S2048 D128 causal bf16 (qwen3-4b's train shape); "
             f"launches: {TRAIN_STEPS} full-depth qwen3-4b train steps, "
-            f"{BWD_PASSES} kernels a call"),
+            f"{bwd_bf16} kernels a call"),
         kernel_entry(
             "rglru_scan_bwd", "src/repro_torch/csrc/rglru_scan_bwd.cu",
             RGLRU_BWD_REPLACES,

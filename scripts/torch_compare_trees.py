@@ -4,6 +4,7 @@
 and RG-LRU scan kernels at the paths' shapes.
 
     python3 scripts/torch_compare_trees.py PARENT . . PARENT
+    python3 scripts/torch_compare_trees.py --train PARENT . . PARENT
 
 Each argument is the root of a checkout (``PARENT`` e.g. unpacked with
 ``git archive <commit> | tar -x -C PARENT`` into a git-ignored directory).
@@ -20,7 +21,12 @@ kernel's at ``DEC_HI``, ``DEC_HYB`` and ``DEC_LONG`` on bf16 transposed
 views of the model's [B, C, Kh, D] cache, as ``decode_attend`` hands
 them over (no copies); and the scan kernel's at ``RG_SERVE`` and
 ``RG_PREFILL`` on fp32 a, b and h0, as the rec blocks hand them over.
-Shapes, the timings and the device timer are
+With ``--train`` it measures training instead: the flash backward
+kernel's median device time on bf16 transposed views at ``QWEN_TRAIN``
+and ``HYB_TRAIN``, and full-width, full-depth qwen3-4b trained
+``TRAIN_STEPS`` steps through ``launch.train.train`` at ``TRAIN_B`` x
+``TRAIN_S`` (host clock per step, ending in a synchronise; the median
+after the first step) with its peak memory. Shapes, the timings and the device timer are
 ``chip_smoke.py``'s (this checkout's, for every tree measured).
 The first line is the card's ``nvidia-smi`` name and power limit. Needs a
 CUDA card; imports nothing of JAX.
@@ -32,6 +38,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -97,10 +104,61 @@ def measure(root: str) -> dict:
     return out
 
 
+def measure_train(root: str) -> dict:
+    """The training numbers of the checkout at ``root``, in this
+    process."""
+    sys.path.insert(0, os.path.join(root, "src"))
+    sys.path.insert(0, os.path.dirname(HERE))
+    import torch
+    import chip_smoke as cs
+    from repro_torch.config import get_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel)
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import api
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_compare_trees: no CUDA device")
+    out = {"tree": root}
+    for label, (B, H, Kh, Sq, Sk, D, kw) in {
+            "qwen3_train": cs.QWEN_TRAIN, "hybrid_train": cs.HYB_TRAIN}.items():
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda")
+                   .bfloat16().transpose(1, 2)
+                   for S, n in ((Sq, H), (Sk, Kh), (Sk, Kh)))
+        dout = torch.randn(B, H, Sq, D, generator=g, device="cuda").bfloat16()
+        out[f"flash_bwd_{label}_ms"] = cs.device_ms(
+            torch, lambda: flash_attention_bwd_kernel(q, k, v, dout, **kw),
+            5)
+        del q, k, v, dout
+    torch.cuda.empty_cache()
+    model = api.build_params(get_config(cs.HI), seed=0, device="cuda")
+    stamps = []
+
+    def on_step(step, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_mod.train(cs.HI, steps=cs.TRAIN_STEPS, batch=cs.TRAIN_B,
+                    seq=cs.TRAIN_S, reduced=False, seed=0, log_every=1,
+                    device="cuda", model=model, on_step=on_step)
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    out["train_step_s"] = step_s
+    out["train_step_s_median_after_first"] = statistics.median(step_s[1:])
+    out["train_tokens_per_s"] = (cs.TRAIN_B * cs.TRAIN_S
+                                 / out["train_step_s_median_after_first"])
+    out["train_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def main(argv) -> int:
-    if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(measure(os.path.abspath(argv[1]))), flush=True)
+    if len(argv) == 2 and argv[0] in ("--one", "--one-train"):
+        fn = measure if argv[0] == "--one" else measure_train
+        print(json.dumps(fn(os.path.abspath(argv[1]))), flush=True)
         return 0
+    one = "--one"
+    if argv and argv[0] == "--train":
+        one, argv = "--one-train", argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -110,7 +168,7 @@ def main(argv) -> int:
     print(smi.stdout.strip(), flush=True)
     for root in argv:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", root], timeout=1800)
+                              one, root], timeout=1800)
         if res.returncode != 0:
             return res.returncode
     return 0

@@ -5,16 +5,19 @@ and of its backward (``repro_torch/csrc/flash_attention_bwd.cu``), which
 has no Pallas counterpart: the JAX package differentiates its jnp
 attention with XLA.
 
-The library is built and loaded on the first launch (``kernels._build``),
+The libraries are built and loaded on the first launch (``kernels._build``),
 never at import, so the CPU tests import this module without ``nvcc``.
-What surrounds the launch is plain Python that the CPU tests reach: the
-bf16 instances' warpgroups per CTA (``warpgroups``) and their layout
-check, since their loads go through TMA tensor maps
+What surrounds the launches is plain Python that the CPU tests reach: the
+forward's bf16 warpgroups per CTA (``warpgroups``), the backward's launch
+plan (``bwd_plan``: kernels, tiles, warpgroups, the head split that fills
+the card at MQA shapes, scratch bytes) and the layout check of every
+tensor the bf16 instances read or write through TMA tensor maps
 (``check_tma_layout``).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -39,20 +42,76 @@ _SIGNATURES = {
     "flash_attention_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
-    # q, k, v, dout, dq, dk, dv, lse, di; dtype, B, H, Kh, Sq, Sk, D;
-    # 21 (b, h, s) strides of q, k, v, dout, dq, dk, dv; causal, window,
-    # chunk, scale, stream
-    "flash_attention_bwd": ([_P] * 9 + [_I] * 7 + [_P]
-                            + [_I, _I, _I, ctypes.c_float, _P],
+    # q, k, v, dout, dq, dk, dv; stats, partial, counters; dtype, B, H, Kh,
+    # Sq, Sk, D; 21 (b, h, s) strides of q, k, v, dout, dq, dk, dv;
+    # causal, window, chunk, scale; dq_warpgroups, head_split; stream
+    "flash_attention_bwd": ([_P] * 10 + [_I] * 7 + [_P]
+                            + [_I, _I, _I, ctypes.c_float, _I, _I, _P],
                             ctypes.c_int),
-    "flash_attention_bwd_passes": ([], ctypes.c_int),
+    "flash_attention_bwd_passes": ([_I], ctypes.c_int),
     "flash_attention_bwd_error_string": ([_I], ctypes.c_char_p),
 }
-#: kernels one backward call launches (lse and Di; dK and dV; dQ), the
+#: kernels one backward call launches, by dtype: fp32 (CUDA cores) lse and
+#: Di, dK and dV, dQ; bf16 (wgmma) lse, Di and dQ, then dK and dV. The
 #: library's ``flash_attention_bwd_passes``
-BWD_PASSES = 3
-#: the backward's grid dimension y is B * H (or B * Kh)
+BWD_PASSES = {torch.float32: 3, torch.bfloat16: 2}
+#: the fp32 backward's grid dimension y is B * H (or B * Kh)
 GRID_Y_MAX = 65535
+#: rows of the bf16 backward's tiles (wgmma's M) and of a stats row's pad
+BWD_TILE = 64
+#: rows of the fp32 backward's tiles
+BWD_TILE_F32 = 32
+
+
+class BwdPlan(NamedTuple):
+    """How one backward call is launched (``bwd_plan``)."""
+    passes: int          # kernels launched, one after the other
+    dq_rows: int         # query rows of a dQ CTA
+    dq_warpgroups: int   # bf16: 64-row consumer warpgroups of a dQ CTA
+    dq_ctas: int
+    kv_keys: int         # keys of a dK/dV CTA
+    head_split: int      # CTAs sharing a key tile's query heads
+    kv_ctas: int
+    stats_bytes: int     # fp32 lse and Di, [B * H][2][Sq padded to 64]
+    partial_bytes: int   # fp32 partial dK and dV of a head split
+    counter_bytes: int   # int32 arrivals per key tile of a head split
+
+
+def bwd_plan(B: int, H: int, Kh: int, Sq: int, Sk: int, D: int,
+             dtype) -> BwdPlan:
+    """The backward's launch plan, as ``csrc/flash_attention_bwd.cu``
+    launches it. bf16: the dQ kernel puts two 64-row warpgroups on a CTA
+    (sharing its K/V ring) where the forward would (``warpgroups``), and
+    one at D 256 (two would not fit in shared memory); a dK/dV CTA holds 128
+    keys (two warpgroups of 64) at D <= 128 and 64 at D 256 (its two
+    warpgroups split D). Where B * Kh * key tiles leaves SMs idle (MQA),
+    the group's query heads are split across CTAs, by the smallest divisor
+    of H / Kh that gives two waves (or by H / Kh), so that a banded mask's
+    short tiles even out; each split's fp32 partial dK and dV goes to
+    scratch and the last CTA of a key tile sums them in split order. fp32:
+    the CUDA-core passes, 32-row tiles, no split."""
+    sq_pad = -(-Sq // BWD_TILE) * BWD_TILE
+    stats = B * H * 2 * sq_pad * 4
+    if dtype == torch.float32:
+        rows = BWD_TILE_F32
+        return BwdPlan(BWD_PASSES[dtype], rows, 0, B * H * -(-Sq // rows),
+                       rows, 1, B * Kh * -(-Sk // rows), stats, 0, 0)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention backward: no {dtype} instance")
+    wg = 1 if D > 128 else warpgroups(B, H, Sq)
+    keys = BWD_TILE if D > 128 else 2 * BWD_TILE
+    groups = B * Kh * -(-Sk // keys)
+    G = H // Kh
+    split = 1
+    if groups < SMS:
+        split = next((d for d in range(1, G + 1)
+                      if G % d == 0 and groups * d >= 2 * SMS), G)
+    d_pad = -(-D // 64) * 64
+    partial = split * groups * keys * d_pad * 2 * 4 if split > 1 else 0
+    return BwdPlan(BWD_PASSES[dtype], BWD_TILE * wg, wg,
+                   B * H * -(-Sq // (BWD_TILE * wg)), keys, split,
+                   groups * split, stats, partial,
+                   groups * 4 if split > 1 else 0)
 
 
 def warpgroups(B: int, H: int, Sq: int) -> int:
@@ -73,6 +132,18 @@ def check_tma_layout(name: str, t: torch.Tensor) -> None:
     if bad:
         raise ValueError(f"flash_attention kernel: {name} is not aligned to "
                          f"{TMA_ALIGN} bytes for TMA: {', '.join(bad)}")
+
+
+def aligned_dout(dout: torch.Tensor) -> torch.Tensor:
+    """``dout`` as the backward reads it: its last dim contiguous and, in
+    bf16, laid out for TMA (``check_tma_layout``); a contiguous copy where
+    it is not, else ``dout`` itself."""
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    if (dout.dtype == torch.bfloat16
+            and _layout.misaligned(dout, TMA_ALIGN)):
+        dout = dout.clone(memory_format=torch.contiguous_format)
+    return dout
 
 
 def _strides(t: torch.Tensor) -> list:
@@ -164,11 +235,13 @@ def flash_attention_kernel(q, k, v, *, causal=True, window=None, chunk=None,
 def flash_attention_bwd_kernel(q, k, v, dout, *, causal=True, window=None,
                                chunk=None, scale=None):
     """The gradients (dq, dk, dv) of attention(q, k, v) (the forward
-    kernel's function, which the backward recomputes in fp32) against
-    ``dout`` [B, H, Sq, D], each of its input's shape, dtype and strides
-    (a dense layout is kept, so attend's transposed views get transposed
-    gradients). Any strides with a contiguous last dim are taken as they
-    are; ``dout`` is copied only if its last dim is not contiguous."""
+    kernel's function, whose statistics the backward recomputes in fp32)
+    against ``dout`` [B, H, Sq, D], each of its input's shape, dtype and
+    strides (a dense layout is kept, so attend's transposed views get
+    transposed gradients). Any strides with a contiguous last dim are taken
+    as they are (bf16: aligned for TMA, ``check_tma_layout``); ``dout`` is
+    copied only where ``aligned_dout`` says. The launch follows
+    ``bwd_plan``; its scratch is allocated here."""
     _check(q, k, v)
     if chunk is not None and chunk <= 0:
         raise ValueError(f"flash_attention kernel: chunk {chunk} must be > 0")
@@ -179,15 +252,24 @@ def flash_attention_bwd_kernel(q, k, v, dout, *, causal=True, window=None,
         raise ValueError(f"flash_attention backward: dout "
                          f"{tuple(dout.shape)} {dout.dtype} on {dout.device} "
                          f"does not match q {tuple(q.shape)} {q.dtype}")
-    if max(B * H, B * Kh) > GRID_Y_MAX:
+    bf16 = q.dtype == torch.bfloat16
+    if not bf16 and max(B * H, B * Kh) > GRID_Y_MAX:
         raise ValueError(f"flash_attention backward: B * H = {B * H} past "
                          f"the grid's {GRID_Y_MAX}")
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
+    dout = aligned_dout(dout)
     scale = scale if scale is not None else D ** -0.5
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    di = torch.empty_like(lse)
+    if bf16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout),
+                        ("dq", dq), ("dk", dk), ("dv", dv)):
+            check_tma_layout(name, t)
+    plan = bwd_plan(B, H, Kh, Sq, Sk, D, q.dtype)
+    stats = torch.empty(plan.stats_bytes // 4, dtype=torch.float32,
+                        device=q.device)
+    partial = torch.empty(plan.partial_bytes // 4, dtype=torch.float32,
+                          device=q.device) if plan.partial_bytes else None
+    counters = torch.empty(plan.counter_bytes // 4, dtype=torch.int32,
+                           device=q.device) if plan.counter_bytes else None
     strides = (ctypes.c_int64 * 21)(*[
         st for t in (q, k, v, dout, dq, dk, dv) for st in _strides(t)])
     lib = bwd_library()
@@ -195,11 +277,14 @@ def flash_attention_bwd_kernel(q, k, v, dout, *, causal=True, window=None,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), DTYPES[q.dtype], B, H, Kh, Sq, Sk, D,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            DTYPES[q.dtype], B, H, Kh, Sq, Sk, D,
             ctypes.cast(strides, ctypes.c_void_p), int(causal),
             -1 if window is None else int(window),
-            -1 if chunk is None else int(chunk), float(scale), stream)
+            -1 if chunk is None else int(chunk), float(scale),
+            plan.dq_warpgroups, plan.head_split, stream)
     if err != 0:
         msg = lib.flash_attention_bwd_error_string(err).decode()
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "

@@ -13,7 +13,8 @@ run can show that its path went through it, and
 ``flash_attention.launches_by_shape`` counts them per (B, H, Kh, Sq, Sk,
 D), so a run that launches several shapes can tell them apart;
 ``flash_attention.bwd_launches`` counts the backward's kernels (each
-backward call launches ``kernel.BWD_PASSES`` of them).
+backward call launches ``kernel.BWD_PASSES[dtype]`` of them: 2 in bf16,
+3 in fp32).
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ def _forward(q, k, v, causal, window, chunk, scale):
 
 class FlashAttention(torch.autograd.Function):
     """The kernel as an autograd function: forward saves q, k and v (the
-    backward recomputes the softmax statistics and the output in fp32);
-    backward launches the backward kernel."""
+    backward recomputes the softmax statistics in fp32); backward launches
+    the backward kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk, scale):
@@ -60,7 +61,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_kernel(q, k, v, dout, **ctx.mask)
         with _count_lock:
-            flash_attention.bwd_launches += BWD_PASSES
+            flash_attention.bwd_launches += BWD_PASSES[q.dtype]
         return dq, dk, dv, None, None, None, None
 
 

@@ -27,8 +27,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    BWD_PASSES,
     SMS,
+    aligned_dout,
+    bwd_plan,
     check_tma_layout,
+    flash_attention_bwd_kernel,
     flash_attention_kernel,
     warpgroups,
 )
@@ -515,15 +519,18 @@ def test_backward_kernel_matches_ref_on_card(case, dtype, cuda):
     """The backward kernel, reached through autograd on attend's
     transposed views, against autograd of the plain version; the forward
     counts one launch and the backward its passes."""
-    from repro_torch.kernels.flash_attention.kernel import BWD_PASSES
+    _hold_backward_on_card(case, dtype, cuda)
+
+
+def _hold_backward_on_card(case, dtype, cuda):
     arrays, dout, kw = _numpy_inputs(case), _cotangent(case), case[6]
     before = (ops.flash_attention.launches, ops.flash_attention.bwd_launches)
     out, *grads = _torch_grads(lambda q, k, v: ops.flash_attention(
         q, k, v, **kw), arrays, dout, dtype, cuda, views=True)
     torch.cuda.synchronize()
     assert (ops.flash_attention.launches,
-            ops.flash_attention.bwd_launches) == (before[0] + 1,
-                                                  before[1] + BWD_PASSES)
+            ops.flash_attention.bwd_launches) == (
+                before[0] + 1, before[1] + BWD_PASSES[dtype])
     _, *want = _torch_grads(lambda q, k, v: flash_attention_ref(
         q, k, v, **kw), [_f32(t) for t in _torch(arrays, dtype)],
         _f32(torch.from_numpy(dout).to(dtype)), torch.float32, cuda,
@@ -546,3 +553,155 @@ def test_backward_kernel_all_masked_rows_on_card(cuda):
         _f32(dv), np.broadcast_to(want_dv[:, :, None], (B, Kh, Sk, D)),
         atol=1e-5)
     assert float(dq.abs().max()) == 0.0 and float(dk.abs().max()) == 0.0
+
+
+# --------------------------------------------- backward launch plan (CPU)
+# a small MQA case whose dK/dV CTAs split the 16 query heads, with S off
+# the 64-row tile grid and a window inside the band
+MQA_SPLIT_CASE = (1, 16, 1, 200, 200, 256, dict(window=96))
+# the train shapes' bf16 plans, reckoned by hand: qwen3-4b's dQ CTAs hold
+# two 64-row warpgroups (B2 H32 x 16 tiles of 128 rows = 1024 CTAs), its
+# dK/dV CTAs 128 keys (B2 Kh8 x 16 = 256, no split); the hybrid's dQ CTAs
+# one warpgroup (D 256; B2 H16 x 33 tiles = 1056), its dK/dV CTAs 64 keys
+# (B2 Kh1 x 33 = 66 < 132 SMs, so the 16 heads split by 4: 264 CTAs, two
+# waves), 4 x 66 fp32 partials of 64 keys x 256 x (dk, dv), 66 counters;
+# the stats are B * H * (lse, Di) * Sq padded to 64 floats
+TRAIN_PLANS = [
+    ((2, 32, 8, 2048, 2048, 128),
+     dict(passes=2, dq_rows=128, dq_warpgroups=2, dq_ctas=1024,
+          kv_keys=128, head_split=1, kv_ctas=256,
+          stats_bytes=2 * 32 * 2 * 2048 * 4, partial_bytes=0,
+          counter_bytes=0)),
+    ((2, 16, 1, 2100, 2100, 256),
+     dict(passes=2, dq_rows=64, dq_warpgroups=1, dq_ctas=1056, kv_keys=64,
+          head_split=4, kv_ctas=264, stats_bytes=2 * 16 * 2 * 2112 * 4,
+          partial_bytes=4 * 66 * 64 * 256 * 2 * 4, counter_bytes=66 * 4)),
+]
+
+
+@pytest.mark.parametrize("shape,want", TRAIN_PLANS,
+                         ids=[str(s) for s, _ in TRAIN_PLANS])
+def test_backward_plan_at_train_shapes(shape, want):
+    """Both bf16 kernels fill the card at the train shapes (at least one
+    CTA per SM), with the head split and scratch reckoned by hand."""
+    plan = bwd_plan(*shape, torch.bfloat16)
+    assert plan._asdict() == want
+    assert plan.dq_ctas >= SMS and plan.kv_ctas >= SMS
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize(
+    "case", BWD_CASES + BWD_TRAIN_CASES + [MQA_SPLIT_CASE], ids=_case_id)
+def test_backward_plan_at_test_shapes(case, dtype):
+    """The plan's parts against their rules: the kernel count per dtype;
+    dQ CTAs cover Sq; a head split only where the unsplit dK/dV grid
+    leaves SMs idle, by the smallest divisor of the group that gives two
+    waves (or the whole group); partials and counters only with a split,
+    sized per key tile."""
+    B, H, Kh, Sq, Sk, D, _ = case
+    plan = bwd_plan(B, H, Kh, Sq, Sk, D, dtype)
+    G = H // Kh
+    assert plan.passes == BWD_PASSES[dtype]
+    assert plan.stats_bytes == B * H * 2 * (-(-Sq // 64) * 64) * 4
+    assert plan.dq_ctas == B * H * -(-Sq // plan.dq_rows)
+    assert G % plan.head_split == 0
+    groups = plan.kv_ctas // plan.head_split
+    assert groups == B * Kh * -(-Sk // plan.kv_keys)
+    if dtype == torch.float32:
+        assert (plan.dq_rows, plan.kv_keys, plan.head_split) == (32, 32, 1)
+        return
+    assert plan.dq_rows == 64 * plan.dq_warpgroups
+    assert plan.dq_warpgroups == (1 if D > 128 else warpgroups(B, H, Sq))
+    assert plan.kv_keys == (64 if D > 128 else 128)
+    enough = [d for d in range(1, G + 1)
+              if G % d == 0 and groups * d >= 2 * SMS]
+    assert plan.head_split == (1 if groups >= SMS else
+                               (enough[0] if enough else G))
+    d_pad = -(-D // 64) * 64
+    split = plan.head_split > 1
+    assert plan.partial_bytes == (plan.kv_ctas * plan.kv_keys * d_pad * 8
+                                  if split else 0)
+    assert plan.counter_bytes == (groups * 4 if split else 0)
+
+
+def test_backward_plan_splits_the_mqa_case():
+    """The card test below reaches the split path: 4 key tiles of one kv
+    head split 16 ways."""
+    plan = bwd_plan(*MQA_SPLIT_CASE[:6], torch.bfloat16)
+    assert (plan.head_split, plan.kv_ctas) == (16, 64)
+
+
+# [B, S, heads, D] projections of the backward's paths and cases, seen as
+# [B, heads, S, D]; the gradients are empty_like of them
+GRAD_LAYOUTS = [(2, 2048, 32, 128), (2, 2048, 8, 128), (2, 2100, 16, 256),
+                (2, 2100, 1, 256), (1, 200, 16, 256), (1, 256, 8, 120),
+                (2, 130, 8, 128), (2, 77, 2, 128), (2, 48, 4, 64),
+                (1, 512, 4, 96), (2, 1024, 16, 64)]
+
+
+@pytest.mark.parametrize("shape", GRAD_LAYOUTS, ids=str)
+def test_tma_layout_accepts_gradient_views(shape):
+    """dq, dk and dv are written straight into attend's [B, S, H, D]
+    layout (empty_like keeps the transposed strides), and that layout, as
+    dout's contiguous [B, H, S, D], passes the TMA check."""
+    view = torch.empty(shape, dtype=torch.bfloat16).transpose(1, 2)
+    grad = torch.empty_like(view)
+    assert grad.stride() == view.stride()
+    check_tma_layout("dq", grad)
+    dout = torch.empty(view.shape, dtype=torch.bfloat16)
+    check_tma_layout("dout", dout)
+    assert aligned_dout(dout) is dout
+    assert aligned_dout(view) is view
+
+
+def test_aligned_dout_copies_a_misaligned_cotangent():
+    """A dout off the 16-byte grid (here shifted by one element) is
+    copied into a contiguous tensor that the TMA check accepts, with the
+    same values; a dout whose last dim is not contiguous is copied too."""
+    B, H, S, D = 2, 8, 48, 128
+    buf = torch.randn(B * H * S * D + 1).bfloat16()
+    shifted = buf[1:].view(B, S, H, D).transpose(1, 2)
+    with pytest.raises(ValueError, match="data_ptr"):
+        check_tma_layout("dout", shifted)
+    fixed = aligned_dout(shifted)
+    check_tma_layout("dout", fixed)
+    assert fixed.is_contiguous() and torch.equal(fixed, shifted)
+    strided = torch.randn(B, H, D, S).bfloat16().transpose(2, 3)
+    fixed = aligned_dout(strided)
+    assert fixed.stride(-1) == 1 and torch.equal(fixed, strided)
+
+
+def test_backward_kernel_refuses_cpu_tensors():
+    """The backward's binding never runs the plain version: off a CUDA
+    device it raises before anything is built."""
+    q, k, v = _torch(_numpy_inputs(RAGGED_CASE), torch.bfloat16)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        flash_attention_bwd_kernel(q, k, v, q, window=16)
+
+
+# -------------------------------------------- backward (CUDA card), more
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_backward_kernel_head_split_on_card(dtype, cuda):
+    """The MQA case whose dK/dV partials are summed across 16 CTAs, S off
+    the tile grid and a window in the band, against the plain version."""
+    _hold_backward_on_card(MQA_SPLIT_CASE, dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_TRAIN_CASES + [MQA_SPLIT_CASE],
+                         ids=_case_id)
+def test_backward_kernel_is_bit_identical_on_card(case, cuda):
+    """Two bf16 backward calls on the same inputs give the same bits: no
+    sum depends on the order in which CTAs finish."""
+    B, H, Kh, Sq, Sk, D, kw = case
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device=cuda)
+               .bfloat16().transpose(1, 2)
+               for S, n in ((Sq, H), (Sk, Kh), (Sk, Kh)))
+    dout = torch.randn(B, H, Sq, D, generator=g, device=cuda).bfloat16()
+    first = flash_attention_bwd_kernel(q, k, v, dout, **kw)
+    second = flash_attention_bwd_kernel(q, k, v, dout, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

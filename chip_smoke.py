@@ -17,8 +17,9 @@ Phases, each of which exits non-zero on failure:
    built with them: every bf16 instance of ``flash_attention_bwd.cu``
    (the dQ kernel at head dims 64, 96, 120, 128 with one or two
    warpgroups and 256 with one; the dK/dV kernel at the five head dims)
-   must show HGMMA and no spill; its fp32 instances (3 passes x 5 head
-   dims, CUDA cores) and ``rglru_scan_bwd.cu``'s 2 have their registers
+   must show HGMMA and no spill, and neither instance of
+   ``rglru_scan_bwd.cu`` (fp32, bf16) may spill; flash's fp32 backward
+   instances (3 passes x 5 head dims, CUDA cores) have their registers
    and spills printed (a spill is reported, not failed);
 3. kernels: flash_attention, decode_attention and rglru_scan, each
    against its plain PyTorch version on the card, at the test shapes, the
@@ -51,16 +52,23 @@ Phases, each of which exits non-zero on failure:
    plain version runs in fp32 on the same inputs and rounds once; the
    launch plan and exact kernel counts, 2 a call in bf16 and 3 in fp32;
    at the bf16 train shapes a second call must give bitwise-equal
-   gradients); rglru_scan with and without h0, at S = 1, ragged, and the hybrid's
-   [2, 2100, 4096] (fp32 and bf16); the backward kernel's time, the
-   plain backward's, SDPA's backward (flash only) and the bound;
+   gradients); rglru_scan with and without h0, at S = 1, ragged, S one
+   around one and two of its backward plan's blocks, W off the column
+   tile, and the hybrid's [2, 2100, 4096] (fp32 and bf16; the backward
+   plan printed per case, its rows and threads held to the library's; at
+   the train shape a second call must give bitwise-equal gradients); the
+   backward kernel's time, the plain backward's, SDPA's backward (flash
+   only) and the bound;
 4. train: (a) qwen3-4b at full width cut to 2 layers and (c)
    recurrentgemma-9b at full width cut to one (rec, rec, attn) pattern,
    B2 S2048 / S2100, one step's loss and every parameter's gradient
    through the kernels against the same step on the plain versions
    (each gradient within 5e-2 of its norm), launches exact (flash twice
    a layer under remat, its backward 2 kernels a call in bf16;
-   rglru_scan's backward once a rec block); (b) full-width, full-depth qwen3-4b
+   rglru_scan's backward once a rec block); (c)'s step (forward, loss and
+   gradients through the kernels) is also timed, the median of 3 on the
+   host clock, each ending in a synchronising read of its loss; (b)
+   full-width, full-depth qwen3-4b
    (remat on): 4 steps of the synthetic pipeline through
    ``launch.train.train`` at B2 S2048 (B1 if the reckoned peak does not
    fit), finite losses and grad norms, parameters moved (how many
@@ -305,10 +313,14 @@ HYB_TRAIN = (2, 16, 1, 2100, 2100, 256, dict(window=2048))
 FLASH_BWD_CASES = TEST_CASES + [
     RAGGED, (2, 8, 2, 130, 77, 128, {}), CROSS_48, ALL_MASKED,
     (1, 8, 2, 256, 256, 120, dict(window=96)), QWEN_TRAIN, HYB_TRAIN]
-# rglru_scan backward: test shapes, ragged, S = 1 and the hybrid's train
-# shape [2, 2100, 4096], each with and without h0
+# rglru_scan backward: test shapes, ragged, S = 1, S one short of and one
+# past one and two of the fp32 backward plan's 64-row blocks, W off the
+# 32-column tile, and the hybrid's train shape [2, 2100, 4096], each with
+# and without h0
 RG_TRAIN = (2, 2100, 4096)
-RG_BWD_CASES = RGLRU_CASES[:2] + [(3, 37, 200), (4, 1, 4096), RG_TRAIN]
+RG_BWD_CASES = RGLRU_CASES[:2] + [
+    (3, 37, 200), (4, 1, 4096), (2, 63, 4096), (2, 65, 4096),
+    (2, 127, 4096), (2, 129, 4096), (2, 300, 4100), RG_TRAIN]
 # the train phase: (a) qwen3-4b at full width cut to 2 layers and (c)
 # recurrentgemma-9b at full width cut to one (rec, rec, attn) pattern,
 # one step's gradients through the kernels against the plain versions,
@@ -736,8 +748,10 @@ def check_flash_bwd_case(torch, K, case, dtype, seed):
 def check_rglru_bwd_case(torch, K, case, dtype, seed, with_h0=True):
     """rglru_scan's backward kernel through autograd against autograd of
     the plain version on the same inputs: each gradient within BWD_TOL of
-    max(1, its largest value). No single PyTorch call computes the
-    recurrence, so there is no library time."""
+    max(1, its largest value), exactly one backward launch; at RG_TRAIN a
+    second call must give bitwise-equal gradients. Prints the backward's
+    plan. No single PyTorch call computes the recurrence, so there is no
+    library time."""
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd_kernel
     ops, ref = K["rglru_scan"]
     B, S, W = case
@@ -749,12 +763,20 @@ def check_rglru_bwd_case(torch, K, case, dtype, seed, with_h0=True):
     h = ops.rglru_scan(a, b, h0)
     grads = torch.autograd.grad(h, leaves, dy)
     launched = K["launchers"]["rglru_scan"].bwd_launches - before
+    name = dtype_name(dtype)
+    label = f"rglru_scan backward {case} h0={with_h0} {name}"
+    bitwise = None
+    if case == RG_TRAIN:
+        again = torch.autograd.grad(ops.rglru_scan(a, b, h0), leaves, dy)
+        bitwise = all(torch.equal(x, y) for x, y in zip(grads, again))
+        del again
+        if not bitwise:
+            raise AssertionError(f"{label}: two calls gave different "
+                                 f"gradients")
     plain_in = [t.detach().requires_grad_(True) for t in leaves]
     plain_out = ref.rglru_scan_ref(*plain_in[:2],
                                    plain_in[2] if with_h0 else None)
     want = torch.autograd.grad(plain_out, plain_in, dy, retain_graph=True)
-    name = dtype_name(dtype)
-    label = f"rglru_scan backward {case} h0={with_h0} {name}"
     errs = [float((got.float() - w.float()).abs().max())
             / max(1.0, float(w.float().abs().max()))
             for got, w in zip(grads, want)]
@@ -775,7 +797,22 @@ def check_rglru_bwd_case(torch, K, case, dtype, seed, with_h0=True):
                                     retain_graph=True), None,
         20 if S <= 512 else 10, bound,
         {"shape": list(case), "h0": with_h0, "dtype": name,
-         "grad_errs": errs}, plain_n=1)
+         "grad_errs": errs, "bitwise_repeat": bitwise,
+         "plan": rglru_bwd_plan(torch, B, S, W, dtype)}, plain_n=1)
+
+
+def rglru_bwd_plan(torch, B, S, W, dtype) -> dict:
+    """The backward's plan for this shape on this card, its rows a thread
+    and most threads a CTA held to the library's own."""
+    from repro_torch.kernels.rglru_scan import kernel
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = kernel.bwd_library()
+    got = (lib.rglru_scan_bwd_rows(), lib.rglru_scan_bwd_max_threads())
+    if got != (kernel.BWD_ROWS, kernel.BWD_MAX_THREADS):
+        raise AssertionError(f"rglru backward plan's (rows, threads) "
+                             f"{(kernel.BWD_ROWS, kernel.BWD_MAX_THREADS)} "
+                             f"differ from the kernel's {got}")
+    return kernel.bwd_plan(B, S, W, dtype, sms)._asdict()
 
 
 # ------------------------------------------------------------ train phase
@@ -793,6 +830,20 @@ def train_grads(torch, K, model, cfg, batch, labels, plain=False):
     return float(loss.detach()), dict(zip(names, grads))
 
 
+def train_step_ms(torch, model, cfg, inputs, labels, runs=3):
+    """One train step's forward, loss and gradients through the kernels,
+    after a warm-up: the median and each of ``runs`` host-clock times
+    (ms), each ending in a synchronising read of the loss (its gradients'
+    kernels are queued before it on the same stream)."""
+    train_grads(torch, None, model, cfg, inputs, labels)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        train_grads(torch, None, model, cfg, inputs, labels)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), times
+
+
 def train_inputs_for(torch, cfg, batch, seq, seed=0):
     """The train driver's batch and labels from the synthetic pipeline's
     first batch."""
@@ -802,11 +853,13 @@ def train_inputs_for(torch, cfg, batch, seq, seed=0):
     return train_inputs(cfg, tb.tokens, tb.labels, batch, seq, "cuda")
 
 
-def train_grads_check(torch, K, label, cfg, batch, seq, need):
+def train_grads_check(torch, K, label, cfg, batch, seq, need,
+                      timed=False):
     """One train step's gradients of ``cfg`` at full width through the
     kernels, launches counted (``need``: exact counts), against the same
     step on the plain versions: the loss within 2e-2 of max(1, |loss|),
-    every gradient within TRAIN_GRAD_TOL of its norm."""
+    every gradient within TRAIN_GRAD_TOL of its norm. ``timed``: also
+    the step's time through the kernels (``train_step_ms``)."""
     from repro_torch.models import api
     t0 = time.perf_counter()
     model = api.build_params(cfg, seed=0, device="cuda")
@@ -841,10 +894,14 @@ def train_grads_check(torch, K, label, cfg, batch, seq, need):
            "grad_tensors": len(rel), "worst_grad_rel_err": rel[worst],
            "worst_grad": worst,
            "median_grad_rel_err": statistics.median(rel.values()),
-           "launches": launches,
-           "seconds": time.perf_counter() - t0}
+           "launches": launches}
+    del ref, grads
+    if timed:
+        rec["step_ms"], rec["step_ms_runs"] = train_step_ms(
+            torch, model, cfg, inputs, labels)
+    rec["seconds"] = time.perf_counter() - t0
     log(f"  {label}: " + json.dumps(rec))
-    del model, grads, ref
+    del model
     return rec
 
 
@@ -1857,10 +1914,11 @@ def ops_recover(torch, K, db):
 # mangled name, how to label an instance, the SASS opcode it must show
 # (None: no tensor cores), how many instances there are, and whether a
 # spill fails the build. flash and decode: their bf16 tensor-core
-# instances; rglru_scan: both of its own; flash's backward: its bf16
-# instances (dQ at D 64, 96, 120, 128 x 1 or 2 warpgroups and D 256 x 1;
-# dK/dV at the 5 head dims), then its fp32 ones (3 passes x 5 head dims,
-# CUDA cores) and rglru_scan's backward, whose spills are reported
+# instances; rglru_scan and its backward: both of their own (fp32,
+# bf16); flash's backward: its bf16 instances (dQ at D 64, 96, 120, 128 x
+# 1 or 2 warpgroups and D 256 x 1; dK/dV at the 5 head dims), then its
+# fp32 ones (3 passes x 5 head dims, CUDA cores), whose spills are
+# reported
 INSTANCES = {
     "flash_attention": (r"flash_fwd_tcILi(\d+)ELi(\d+)E",
                         lambda t: f"D{t.group(1)} x{t.group(2)} warpgroups",
@@ -1878,9 +1936,9 @@ INSTANCES = {
     "flash_attention_bwd fp32": (
         r"(flash_bwd_(?:stats|dkdv|dq))IfLi(\d+)E",
         lambda t: f"{t.group(1)} fp32 D{t.group(2)}", None, 15, False),
-    "rglru_scan_bwd": (r"rglru_scan_bwd_kernelI(f|13__nv_bfloat16)E",
+    "rglru_scan_bwd": (r"rglru_scan_bwd_splitI(f|13__nv_bfloat16)E",
                        lambda t: "fp32" if t.group(1) == "f" else "bf16",
-                       None, 2, False),
+                       None, 2, True),
 }
 
 
@@ -2104,7 +2162,8 @@ def main() -> int:
         torch, K, "recurrentgemma-9b (rec, rec, attn)",
         get_config(HYB).replace(num_layers=3), TRAIN_B, HYB_TRAIN_S,
         {"flash_attention": 2, "flash_attention_bwd": bwd_bf16,
-         "rglru_scan": 2 * 2, "rglru_scan_bwd": 2, "decode_attention": 0})
+         "rglru_scan": 2 * 2, "rglru_scan_bwd": 2, "decode_attention": 0},
+        timed=True)
     free(torch)
     log(f"[train] (b) qwen3-4b at full width and depth: {TRAIN_STEPS} "
         f"steps of launch.train.train, B{TRAIN_B} S{TRAIN_S}")

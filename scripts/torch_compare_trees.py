@@ -23,10 +23,16 @@ them over (no copies); and the scan kernel's at ``RG_SERVE`` and
 ``RG_PREFILL`` on fp32 a, b and h0, as the rec blocks hand them over.
 With ``--train`` it measures training instead: the flash backward
 kernel's median device time on bf16 transposed views at ``QWEN_TRAIN``
-and ``HYB_TRAIN``, and full-width, full-depth qwen3-4b trained
-``TRAIN_STEPS`` steps through ``launch.train.train`` at ``TRAIN_B`` x
-``TRAIN_S`` (host clock per step, ending in a synchronise; the median
-after the first step) with its peak memory. Shapes, the timings and the device timer are
+and ``HYB_TRAIN``; the RG-LRU scan backward kernel's at ``RG_TRAIN``
+(fp32 and bf16, no h0, h from the forward kernel); one train step of
+full-width recurrentgemma-9b cut to one (rec, rec, attn) pattern at
+``TRAIN_B`` x ``HYB_TRAIN_S`` (forward, loss and gradients through the
+kernels, ``chip_smoke.train_step_ms``: median of 3 on the host clock,
+each ending in a synchronising read of the loss); and full-width,
+full-depth qwen3-4b trained ``TRAIN_STEPS`` steps through
+``launch.train.train`` at ``TRAIN_B`` x ``TRAIN_S`` (host clock per
+step, ending in a synchronise; the median after the first step) with
+its peak memory. Shapes, the timings and the device timer are
 ``chip_smoke.py``'s (this checkout's, for every tree measured).
 The first line is the card's ``nvidia-smi`` name and power limit. Needs a
 CUDA card; imports nothing of JAX.
@@ -114,6 +120,8 @@ def measure_train(root: str) -> dict:
     from repro_torch.config import get_config
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_kernel)
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd_kernel
     from repro_torch.launch import train as train_mod
     from repro_torch.models import api
     if not torch.cuda.is_available():
@@ -130,6 +138,25 @@ def measure_train(root: str) -> dict:
             torch, lambda: flash_attention_bwd_kernel(q, k, v, dout, **kw),
             5)
         del q, k, v, dout
+    B, S, W = cs.RG_TRAIN
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b, _ = cs.rglru_inputs(torch, cs.RG_TRAIN, dtype, 0,
+                                  with_h0=False)
+        h = rg_ops.rglru_scan(a, b)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        dy = torch.randn(B, S, W, generator=g, device="cuda").to(dtype)
+        out[f"rglru_bwd_train_{cs.dtype_name(dtype)}_ms"] = cs.device_ms(
+            torch, lambda: rglru_scan_bwd_kernel(a, h, dy), 10)
+        del a, b, h, dy
+    torch.cuda.empty_cache()
+    cfg = get_config(cs.HYB).replace(num_layers=3)
+    model = api.build_params(cfg, seed=0, device="cuda")
+    model.requires_grad_(True)
+    inputs, labels = cs.train_inputs_for(torch, cfg, cs.TRAIN_B,
+                                         cs.HYB_TRAIN_S)
+    out["hybrid_rec_rec_attn_step_ms"], out["hybrid_step_ms_runs"] = (
+        cs.train_step_ms(torch, model, cfg, inputs, labels))
+    del model, inputs, labels
     torch.cuda.empty_cache()
     model = api.build_params(get_config(cs.HI), seed=0, device="cuda")
     stamps = []

@@ -25,6 +25,12 @@ MAX_THREADS = 256
 TILE_WIDTHS = (32, 16, 8)
 #: the most threads a CTA that ``scan_plan`` takes
 PLAN_THREADS = 192
+#: the backward's geometry (``csrc/rglru_scan_bwd.cu``): it holds three
+#: inputs a row, so a CTA has at most 192 threads
+BWD_ROWS = 16
+BWD_MAX_THREADS = 192
+#: the bytes of loads a CTA of ``bwd_plan`` keeps in flight, at most
+BWD_PLAN_BYTES = 24 * 1024
 #: a tile's row should read at least one 32-byte sector
 SECTOR = 32
 #: grid dimension x and the kernel's int arguments
@@ -38,9 +44,11 @@ _SIGNATURES = {
     "rglru_scan_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
-    # a, h, dy, h0 (or null), da, db, dh0 (or null); dtype, B, S, W,
-    # stream
-    "rglru_scan_bwd": ([_P] * 7 + [_I] * 4 + [_P], ctypes.c_int),
+    # a, h, dy, h0 (or null), da, db, dh0 (or null); dtype, B, S, W, tw,
+    # nseg, stream
+    "rglru_scan_bwd": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
+    "rglru_scan_bwd_rows": ([], ctypes.c_int),
+    "rglru_scan_bwd_max_threads": ([], ctypes.c_int),
     "rglru_scan_bwd_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -57,9 +65,10 @@ def bwd_library() -> ctypes.CDLL:
 
 class Plan(NamedTuple):
     """How a launch cuts [B, S, W]: CTAs of ``tw`` columns (one a lane)
-    by ``nseg`` segments of ``ROWS`` rows, walking S in ``blocks`` blocks
-    of ``block_rows`` rows; CTA i takes batch row i // tiles and column
-    tile i % tiles."""
+    by ``nseg`` segments of ``ROWS`` (the backward: ``BWD_ROWS``) rows,
+    walking S in ``blocks`` blocks of ``block_rows`` rows (the backward
+    from the last); CTA i takes batch row i // tiles and column tile
+    i % tiles."""
     tw: int
     nseg: int
     threads: int
@@ -69,10 +78,11 @@ class Plan(NamedTuple):
     ctas: int
 
 
-def plan_for(B: int, S: int, W: int, tw: int, nseg: int) -> Plan:
+def plan_for(B: int, S: int, W: int, tw: int, nseg: int,
+             rows: int = ROWS) -> Plan:
     """The launch the kernel makes for ``tw`` columns and ``nseg``
-    segments a CTA."""
-    block_rows = nseg * ROWS
+    segments of ``rows`` rows a CTA."""
+    block_rows = nseg * rows
     tiles = -(-W // tw)
     return Plan(tw=tw, nseg=nseg, threads=tw * nseg, block_rows=block_rows,
                 blocks=-(-S // block_rows), tiles=tiles, ctas=B * tiles)
@@ -91,11 +101,31 @@ def scan_plan(B: int, S: int, W: int, dtype: torch.dtype, sms: int) -> Plan:
       fastest at the hybrid's prompt (6 segments of 32 columns) and at
       B 1, S 8192 (12 of 16), against 128 and 256.
     """
+    return _plan(B, S, W, dtype, sms, ROWS, PLAN_THREADS)
+
+
+def bwd_plan(B: int, S: int, W: int, dtype: torch.dtype,
+             sms: int) -> Plan:
+    """The backward's plan: the column tile as ``scan_plan`` picks it
+    (the widest that still gives every SM a CTA, none under one sector a
+    row), and as many segments of ``BWD_ROWS`` rows as S needs, up to a
+    CTA whose buffer of three inputs holds BWD_PLAN_BYTES (fp32: 128
+    threads; bf16: 256, so BWD_MAX_THREADS, 192). On an H100
+    (``scripts/torch_rglru_plan_sweep.py --bwd``) that was the fastest
+    at the hybrid's train shape [2, 2100, 4096] (fp32 32 columns x 4
+    segments, bf16 32 x 6) and at B 1, S 8192 (16 x 8), against 192
+    threads in fp32 and fewer in bf16."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    threads = min(BWD_MAX_THREADS, BWD_PLAN_BYTES // (3 * BWD_ROWS * esz))
+    return _plan(B, S, W, dtype, sms, BWD_ROWS, threads)
+
+
+def _plan(B, S, W, dtype, sms, rows, threads) -> Plan:
     esz = torch.empty((), dtype=dtype).element_size()
     widths = [tw for tw in TILE_WIDTHS if tw * esz >= SECTOR]
     tw = next((t for t in widths if B * -(-W // t) >= sms), widths[-1])
-    nseg = min(PLAN_THREADS // tw, -(-S // ROWS))
-    return plan_for(B, S, W, tw, nseg)
+    nseg = min(threads // tw, -(-S // rows))
+    return plan_for(B, S, W, tw, nseg, rows)
 
 
 def _check(a, b, h0) -> None:
@@ -164,6 +194,7 @@ def rglru_scan_bwd_kernel(a, h, dy, h0=None):
                          f"{a.dtype}")
     dy = dy.contiguous()
     B, S, W = a.shape
+    plan = bwd_plan(B, S, W, a.dtype, _layout.sm_count(a.device.index or 0))
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = None if h0 is None else torch.empty_like(h0)
     lib = bwd_library()
@@ -173,7 +204,7 @@ def rglru_scan_bwd_kernel(a, h, dy, h0=None):
             a.data_ptr(), h.data_ptr(), dy.data_ptr(),
             None if h0 is None else h0.data_ptr(), da.data_ptr(),
             db.data_ptr(), None if dh0 is None else dh0.data_ptr(),
-            DTYPES[a.dtype], B, S, W, stream)
+            DTYPES[a.dtype], B, S, W, plan.tw, plan.nseg, stream)
     if err != 0:
         msg = lib.rglru_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"rglru_scan backward launch failed: CUDA error "

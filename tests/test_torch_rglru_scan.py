@@ -347,6 +347,10 @@ def test_kernel_rejects_non_contiguous_input(cuda):
 # fp32 (the hybrid's gates) and bf16.
 BWD_CASES = RGLRU_CASES[:2] + [RAGGED_CASE, (4, 1, 4096), (2, 97, 4096)]
 BWD_TRAIN_CASE = (2, 2100, 4096)
+# the backward kernel's edges on the card: S one short of and one past one
+# and two of its fp32 train plan's 64-row blocks; W off the 32-column tile
+BWD_EDGE_CASES = [(2, 63, 4096), (2, 65, 4096), (2, 127, 4096),
+                  (2, 129, 4096), (2, 300, 4100)]
 # fp32: the oracle's associative scan multiplies in another order (see the
 # module docstring); bf16: one bf16 ulp of the gradients' size
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -412,10 +416,179 @@ def test_cpu_backward_launches_no_kernel():
     assert (ops.rglru_scan.launches, ops.rglru_scan.bwd_launches) == before
 
 
+# ------------------------------------------ the backward's plan (CPU)
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
+@pytest.mark.parametrize("case", PLAN_SHAPES, ids=str)
+def test_bwd_plan_covers_every_column_and_row_once(case, dtype):
+    B, S, W = case
+    plan = kernel.bwd_plan(B, S, W, dtype, H100_SMS)
+    assert plan.ctas == B * plan.tiles and plan.tiles * plan.tw >= W
+    assert (plan.tiles - 1) * plan.tw < W
+    assert (_covered(plan, B, W) == 1).all()
+    # the walk from the last block to block 0 meets every row once: the
+    # first block it runs holds row S - 1, and no block is empty
+    assert (plan.blocks - 1) * plan.block_rows < S <= (
+        plan.blocks * plan.block_rows)
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
+@pytest.mark.parametrize("case", PLAN_SHAPES, ids=str)
+def test_bwd_plan_within_the_instance_limits(case, dtype):
+    B, S, W = case
+    plan = kernel.bwd_plan(B, S, W, dtype, H100_SMS)
+    esz = torch.empty((), dtype=dtype).element_size()
+    assert plan.tw in kernel.TILE_WIDTHS and plan.tw * esz >= kernel.SECTOR
+    assert 1 <= plan.nseg <= -(-S // kernel.BWD_ROWS)
+    assert plan.threads == plan.tw * plan.nseg <= kernel.BWD_MAX_THREADS
+    assert plan.block_rows == plan.nseg * kernel.BWD_ROWS
+    assert plan == kernel.plan_for(B, S, W, plan.tw, plan.nseg,
+                                   kernel.BWD_ROWS)
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=str)
+@pytest.mark.parametrize("case", [BWD_TRAIN_CASE, LONG_CASE, (1, 2100, 4096)],
+                         ids=str)
+def test_bwd_plan_fills_a_wave(case, dtype):
+    """Every SM of an H100 gets a CTA, B = 1 included, and two CTAs an SM
+    (the kernel's launch bounds) hold the whole grid at the train shape;
+    where S is long enough a CTA keeps BWD_PLAN_BYTES of loads in flight
+    (fp32: 128 threads) or takes BWD_MAX_THREADS (bf16: 192)."""
+    plan = kernel.bwd_plan(*case, dtype, H100_SMS)
+    assert plan.ctas >= H100_SMS
+    esz = torch.empty((), dtype=dtype).element_size()
+    threads = {torch.float32: 128, torch.bfloat16: 192}[dtype]
+    assert threads == min(kernel.BWD_MAX_THREADS, kernel.BWD_PLAN_BYTES
+                          // (3 * kernel.BWD_ROWS * esz))
+    if case[1] >= threads // plan.tw * kernel.BWD_ROWS:
+        assert plan.threads == threads
+    if case == BWD_TRAIN_CASE:
+        assert plan.ctas <= 2 * H100_SMS
+
+
+def test_bwd_plan_at_the_train_shape():
+    """The plans chip_smoke.py prints at the hybrid's train shape: fp32
+    32 columns by 4 segments, 33 blocks of 64 rows; bf16 32 by 6, 22
+    blocks of 96; B 1 at S 8192 fp32 on 16-column tiles by 8. The card's
+    edge cases sit one row around one and two of the fp32 plan's
+    blocks."""
+    want = {torch.float32: (32, 4, 64, 33, 256),
+            torch.bfloat16: (32, 6, 96, 22, 256)}
+    for dtype in PLAN_DTYPES:
+        plan = kernel.bwd_plan(*BWD_TRAIN_CASE, dtype, H100_SMS)
+        assert (plan.tw, plan.nseg, plan.block_rows, plan.blocks,
+                plan.ctas) == want[dtype]
+    assert kernel.bwd_plan(*LONG_CASE, torch.float32,
+                           H100_SMS)[:2] == (16, 8)
+    for S in (63, 65, 127, 129):
+        plan = kernel.bwd_plan(2, S, 4096, torch.float32, H100_SMS)
+        assert plan.block_rows == 64 and min(S % 64, 64 - S % 64) == 1
+    assert [(2, S, 4096) for S in (63, 65, 127, 129)] == BWD_EDGE_CASES[:4]
+
+
+def _emulate_bwd_kernel(a, h, dy, h0, plan):
+    """The backward kernel's order of operations in numpy float32, CTA by
+    CTA. Each thread's row t holds a' = a_{t+1} (1 at t = S - 1, not
+    loaded), dy_t and h_{t-1} (h0, or 0, at t = 0); rows past S are the
+    identity (a' = 1, dy = 0). Per segment of BWD_ROWS rows a local
+    reverse scan from zero gives (P = prod a', G = g at its first row);
+    the (P, G) chain runs from the last segment of the last block to the
+    first of block 0, from g_S = 0, giving each segment's carry-in; the
+    re-walk from it gives db = g and da = g * h_{t-1}; dh0 = a_0 * g_0.
+    Returns (da, db, dh0 or None); columns past W are not touched, every
+    element is written by exactly one CTA, and no index of a, h or dy
+    outside [0, S) is formed (numpy would raise at S)."""
+    B, S, W = a.shape
+    R, L = kernel.BWD_ROWS, plan.block_rows
+    da = np.full(a.shape, np.nan, np.float32)
+    db = np.full(a.shape, np.nan, np.float32)
+    dh0 = None if h0 is None else np.full((B, W), np.nan, np.float32)
+    rows = plan.blocks * L
+    for cta in range(plan.ctas):
+        bi, tile = divmod(cta, plan.tiles)
+        cols = np.arange(tile * plan.tw, min(W, (tile + 1) * plan.tw))
+        if cols.size == 0:
+            continue
+        n = cols.size
+        ac = np.ones((rows, n), np.float32)
+        ac[:S - 1] = a[bi, 1:S][:, cols]
+        dc = np.zeros((rows, n), np.float32)
+        dc[:S] = dy[bi, :S][:, cols]
+        hc = np.zeros((rows, n), np.float32)
+        hc[1:S] = h[bi, :S - 1][:, cols]
+        if h0 is not None:
+            hc[0] = h0[bi, cols]
+        ac, dc, hc = (x.reshape(plan.blocks, plan.nseg, R, n)
+                      for x in (ac, dc, hc))
+        P = np.ones((plan.blocks, plan.nseg, n), np.float32)
+        G = np.zeros_like(P)
+        for r in range(R - 1, -1, -1):
+            P = P * ac[:, :, r]
+            G = _fma(ac[:, :, r], G, dc[:, :, r])
+        carry = np.zeros(n, np.float32)
+        c_in = np.empty_like(P)
+        for k in range(plan.blocks - 1, -1, -1):
+            for j in range(plan.nseg - 1, -1, -1):
+                c_in[k, j] = carry
+                carry = _fma(P[k, j], carry, G[k, j])
+        g, gs = c_in, np.empty_like(ac)
+        for r in range(R - 1, -1, -1):
+            g = _fma(ac[:, :, r], g, dc[:, :, r])
+            gs[:, :, r] = g
+        db[bi][:, cols] = gs.reshape(rows, n)[:S]
+        da[bi][:, cols] = (gs * hc).reshape(rows, n)[:S]
+        if h0 is not None:
+            dh0[bi, cols] = a[bi, 0, cols] * carry
+    return da, db, dh0
+
+
+def _bwd_emulation_cases():
+    """(case, plan): S = 1; the train shape's S at narrow W under its own
+    plan and under forced ones; the ragged case; S one around one and two
+    blocks of several plans (W 40: the 32-column tile is ragged)."""
+    cases = [((3, 1, 40), None), ((2, 2100, 40), None),
+             ((2, 2100, 40), (32, 4)), (RAGGED_CASE, None)]
+    for tw, nseg in ((32, 6), (16, 12), (8, 24), (32, 1), (32, 4)):
+        L = nseg * kernel.BWD_ROWS
+        cases += [((2, S, 40), (tw, nseg))
+                  for S in (L - 1, L + 1, 2 * L - 1, 2 * L + 1)]
+    return cases
+
+
+@pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "no_h0"])
+@pytest.mark.parametrize("case,forced", _bwd_emulation_cases(), ids=str)
+def test_bwd_kernel_order_matches_jax_vjp(case, forced, with_h0, jax_rglru):
+    """The backward kernel's order against jax.vjp of the JAX oracle, h
+    being the oracle's forward output (the kernel's saved h); each
+    gradient within TOL of max(1, its largest value), as the card's
+    check holds the kernel to the plain version."""
+    import jax
+    import jax.numpy as jnp
+    B, S, W = case
+    plan = (kernel.bwd_plan(B, S, W, torch.float32, H100_SMS)
+            if forced is None else
+            kernel.plan_for(B, S, W, *forced, kernel.BWD_ROWS))
+    a, b, h0 = _numpy_inputs(case)
+    dy = _dy(case)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    jh0 = jnp.asarray(h0) if with_h0 else jnp.zeros((B, W), jnp.float32)
+    h, vjp = jax.vjp(jax_rglru[1], ja, jb, jh0)
+    wa, wb, wh0 = vjp(jnp.asarray(dy))
+    da, db, dh0 = _emulate_bwd_kernel(a, np.asarray(h), dy,
+                                      h0 if with_h0 else None, plan)
+    got = [(da, wa), (db, wb)] + ([(dh0, wh0)] if with_h0 else [])
+    for g, w in got:
+        assert not np.isnan(g).any()
+        assert _max_err(torch.from_numpy(g), w) < TOL * max(
+            1.0, float(np.abs(w).max()))
+    if not with_h0:
+        assert dh0 is None
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "no_h0"])
-@pytest.mark.parametrize("case", BWD_CASES + [BWD_TRAIN_CASE], ids=str)
+@pytest.mark.parametrize("case", BWD_CASES + BWD_EDGE_CASES
+                         + [BWD_TRAIN_CASE], ids=str)
 def test_backward_kernel_matches_ref_on_card(case, with_h0, dtype, cuda):
     """The backward kernel through autograd against autograd of the plain
     version, each gradient within BWD_TOL of max(1, its largest value);
@@ -435,3 +608,15 @@ def test_backward_kernel_matches_ref_on_card(case, with_h0, dtype, cuda):
         scale = max(1.0, float(w.float().abs().max()))
         assert float((g.float() - w.float()).abs().max()) < \
             BWD_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_backward_kernel_is_deterministic_on_card(dtype, cuda):
+    """No atomics, one writer an element: two calls at the train shape
+    give the same bits."""
+    arrays, dy = _numpy_inputs(BWD_TRAIN_CASE), _dy(BWD_TRAIN_CASE)
+    first = _grads(ops.rglru_scan, arrays, dy, dtype, cuda)
+    again = _grads(ops.rglru_scan, arrays, dy, dtype, cuda)
+    for g, h in zip(first[1:], again[1:]):
+        assert torch.equal(g, h)

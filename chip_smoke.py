@@ -42,7 +42,8 @@ Phases, each of which exits non-zero on failure:
    kernel, the plain version and one PyTorch library call of the same
    function where there is one (a yardstick only), beside the least time
    the card could take (bytes over 3.35 TB/s or operations over the peak
-   rate of the input type, whichever is larger); then the backward
+   rate of the input type, whichever is larger; decode's bytes are the
+   K/V rows of its valid slots); then the backward
    kernels, reached through autograd, against autograd of their plain
    versions on the card: flash at the test shapes, ragged S, GQA and
    MQA, non-causal cross-attention Sq 48 / Sk 1024, all-masked rows,
@@ -58,7 +59,14 @@ Phases, each of which exits non-zero on failure:
    plan printed per case, its rows and threads held to the library's; at
    the train shape a second call must give bitwise-equal gradients); the
    backward kernel's time, the plain backward's, SDPA's backward (flash
-   only) and the bound;
+   only) and the bound; llama4-scout-17b-a16e's shapes (40 query heads
+   over 8 kv heads, G 5): flash at its serving shape (B2 S48, chunked
+   and full layers, fp32 and bf16) and its 8320-token prompt (the 8192
+   chunk border inside a tile; chunked and full), decode on its wrapped
+   8192-slot ring (chunk 8192: 144 slots valid; full: all), flash's
+   backward at B2 S2048 (no head split) and B1 S1024 (a head split of
+   5), both bitwise repeatable; flash's forward plan (warpgroups, CTAs)
+   is printed with every bf16 case;
 4. train: (a) qwen3-4b at full width cut to 2 layers and (c)
    recurrentgemma-9b at full width cut to one (rec, rec, attn) pattern,
    B2 S2048 / S2100, one step's loss and every parameter's gradient
@@ -73,7 +81,14 @@ Phases, each of which exits non-zero on failure:
    ``launch.train.train`` at B2 S2048 (B1 if the reckoned peak does not
    fit), finite losses and grad norms, parameters moved (how many
    tensors, and the norm gains, which start at zero), exact flash
-   launches, time per step, tokens/s and peak memory;
+   launches, time per step, tokens/s and peak memory; (d) one
+   full-width llama4-scout-17b-a16e layer of each kind (chunked, full)
+   at B2 S2048: the gradients of a fixed scalar of its output plus its
+   aux loss with respect to every parameter and x, through the kernels
+   (flash's launches exact), against the plain versions given the same
+   expert choices (``routed_as``), each within 5e-2 of its norm; one
+   full-width deepseek-v2-236b layer (MLA and MoE, no kernel): every
+   gradient finite and non-zero;
 5. model: full-width, full-depth qwen3-4b, stablelm-1.6b,
    recurrentgemma-9b, granite-20b, mamba2-2.7b, h2o-danube-3-4b,
    seamless-m4t-medium and llava-next-mistral-7b (random bf16 weights
@@ -85,7 +100,18 @@ Phases, each of which exits non-zero on failure:
    chunked scan over S tokens against the recurrent decode of the last
    token from the cache of the first S - 1 (the whole model's
    last-position logits from prefill + ``decode_step`` are reported
-   beside ``forward``'s);
+   beside ``forward``'s); the MoE family at full width cut in depth
+   (``MOE_CUTS``, registered as ``llama4-scout-17b-a16e-L8`` and
+   ``deepseek-v2-236b-L6``): finite logits and aux; llama4's first
+   chunked and first full layer against the plain versions (given the
+   same expert choices), two calls of each giving the same bits;
+   deepseek, which runs no kernel, held to itself in its two forms: the
+   last position's logits of prefill + ``decode_step`` against
+   ``forward`` (B1 S8, where no entry can be dropped past capacity; the
+   same expert choices) within MOE_FORMS_TOL of max|logit|, and its MLA
+   sublayer alone at the generate shape (B2, prefill of 1024 tokens and
+   16 decode steps against the full form over 1040) within
+   MLA_FORMS_TOL of max|full|;
 6. generate: prefill then 16 ``decode_step``s of full-width qwen3-4b
    (B2, prompt 1024), recurrentgemma-9b (B2, prompt 2100, past its 2048
    window, so the cache is a wrapped ring) and mamba2-2.7b (B2, prompt
@@ -93,7 +119,12 @@ Phases, each of which exits non-zero on failure:
    prompt 4160, past its 4096 window: a wrapped D 120 ring),
    seamless-m4t-medium (B2, 1024 frames + 64 tokens) and
    llava-next-mistral-7b (B2, 2880 patches + 64 tokens; these three with
-   wq and wk at fan_in d_model, ``rescale_qk``); logits at every step
+   wq and wk at fan_in d_model, ``rescale_qk``), llama4-scout-17b-a16e
+   cut to one chunk-pattern group (B1, prompt 8320: every layer's
+   8192-slot ring wraps, the full layer's too) and deepseek-v2-236b cut
+   to 6 layers (B2, prompt 1024; no kernel: flash and decode 0; llama4
+   with ``rescale_qk``; the plain run of an MoE model is given the
+   kernels' run's expert choices); logits at every step
    against the same run on the plain versions (held, except the
    hybrid's: reported), the decode kernel's
    launches = steps x self-attention layers, flash's = the prompt's
@@ -105,7 +136,9 @@ Phases, each of which exits non-zero on failure:
    recurrentgemma-9b (pair E of the paper's Fig 16), with mamba2-2.7b
    (pair A) and with granite-20b (pair B); stablelm-1.6b (Q0) with
    h2o-danube-3-4b (pair F); seamless-m4t-medium (Q0) with
-   llava-next-mistral-7b (pair J); at full size under FIKIT and under
+   llava-next-mistral-7b (pair J); llama4-scout-17b-a16e-L8 (Q0) with
+   qwen3-4b (pair H) and deepseek-v2-236b-L6 (Q0) with mamba2-2.7b
+   (pair D); at full size under FIKIT and under
    SHARING, each system released before the next; every kernel's launch
    counter is set to 0 before each run and read after it, and flash must
    show exactly every attention layer of the run's invocations, and its
@@ -167,7 +200,7 @@ SCALED_TOL = 2 ** -6
 # the fields of a kernel's plan that a case's line shows (decode's split
 # plan, rglru_scan's scan plan, flash backward's launch plan)
 PLAN_SHOWN = ("splits", "split_len", "tw", "nseg", "threads", "blocks",
-              "ctas", "stages", "smem_bytes", "partial_bytes",
+              "ctas", "stages", "smem_bytes", "partial_bytes", "warpgroups",
               "dq_warpgroups", "dq_ctas", "head_split", "kv_ctas")
 RGLRU_TOL = 1e-4
 HI, LO, HYB = "qwen3-4b", "stablelm-1.6b", "recurrentgemma-9b"
@@ -332,6 +365,63 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 4
 HYB_TRAIN_S = 2100
 TRAIN_GRAD_TOL = 5e-2
 
+# the MoE family at full width, cut in depth to fit one card (registered
+# under these names by ``register_moe_cuts``): llama4-scout-17b-a16e
+# (48 layers) to two chunk-pattern groups of 4 (3 chunked + 1 full; 39.3
+# GB of bf16 weights) beside pair H's qwen3-4b, and to one group (19.6
+# GB) in the generate phase, where the plain flash at its 8320-token
+# prompt needs about 45 GB; deepseek-v2-236b (60 layers, MLA) to 6
+# (49.7 GB) beside pair D's mamba2-2.7b
+LLAMA4, DEEPSEEK = "llama4-scout-17b-a16e", "deepseek-v2-236b"
+MOE_CUTS = {f"{LLAMA4}-L8": (LLAMA4, 8), f"{LLAMA4}-L4": (LLAMA4, 4),
+            f"{DEEPSEEK}-L6": (DEEPSEEK, 6)}
+LLAMA4_L8, LLAMA4_L4, DEEPSEEK_L6 = MOE_CUTS
+# pairs H and D of the paper's Fig 16: an MoE model as the high service
+MOE_PAIRS = ((LLAMA4_L8, HI), (DEEPSEEK_L6, SSM_LO))
+# the generate phase's (model, batch, prompt, rescale_qk): llama4 past its
+# 8192 chunk (its chunked and full layers' rings both wrap), with wq and
+# wk at fan_in d_model as h2o's, seamless's and llava's (``rescale_qk``:
+# at the reference init, with 40 heads and no qk-norm, the prefill's last
+# logits moved by 46 % of their size between the kernels and the plain
+# versions on an H100); deepseek (MLA, no kernel: the two runs are one
+# function) at a multiple of MLA's 512-row block
+MOE_GENERATE = ((LLAMA4_L4, 1, 8320, True), (DEEPSEEK_L6, 2, 1024, False))
+# deepseek's two forms (phase 5): forward over MOE_FORMS_S tokens against
+# prefill of the first S - 1 and one decode step. Each form sizes an
+# expert's capacity from its own token count, so an entry dropped in one
+# would differ by design: at B1 S8 no entry can be dropped (a token takes
+# an expert once, and C is at least 8 or every entry), which the check
+# asserts; at S16 the random full-width model dropped one. The last
+# position's logits of the two forms differ by 6.6e-3 of max|logit| on an
+# H100 (bf16 over 6 layers, the same expert choices); held to 3x that
+MOE_FORMS_B, MOE_FORMS_S = 1, 8
+MOE_FORMS_TOL = 2e-2
+# deepseek's MLA sublayer alone (no MoE, so no capacity to differ) at the
+# generate phase's shape: prefill of a B2 1024-token prompt (two 512-row
+# q blocks) into a 1040-slot cache and 16 decode steps, against the full
+# form over the same 1040 rows (three q blocks); each form's max |diff|
+# over max |full|. Both forms gave the full form's bits on an H100 (0.0);
+# held to one bf16 step at max |full| (2^-8)
+MLA_FORMS_B, MLA_FORMS_PROMPT, MLA_FORMS_STEPS = 2, 1024, 16
+MLA_FORMS_TOL = 2.0 ** -8
+# llama4's kernel shapes: serving (B2 S48; its chunked and its full
+# layers), the generate phase's 8320-token prompt (the chunk border
+# inside a tile) and last step's 8192-slot wrapped ring (chunked layers:
+# the 144 slots of the second chunk valid; full layers: all), and the
+# train shape of phase 4 (d); G 5 (40 query heads over 8 kv heads)
+L4_SERVE = (2, 40, 8, 48, 48, 128, dict(chunk=8192))
+L4_SERVE_FULL = (2, 40, 8, 48, 48, 128, {})
+L4_PROMPT = (1, 40, 8, 8320, 8320, 128, dict(chunk=8192))
+L4_PROMPT_FULL = (1, 40, 8, 8320, 8320, 128, {})
+DEC_L4 = (1, 40, 8, 8192, 128, dict(chunk=8192), 8335)
+DEC_L4_FULL = (1, 40, 8, 8192, 128, {}, 8335)
+L4_TRAIN = (2, 40, 8, 2048, 2048, 128, dict(chunk=8192))
+# bwd_plan splits a kv head's query heads only below one wave of key
+# tiles (groups < SMS): L4_TRAIN's 256 groups take no split; at B1 S1024
+# (64 groups) the five heads of a group split five ways, the first odd
+# split the kernel meets
+L4_SPLIT5 = (1, 40, 8, 1024, 1024, 128, {})
+
 
 _T0 = time.perf_counter()
 
@@ -486,6 +576,11 @@ def check_flash_case(torch, K, case, dtype, seed, path_layout=False):
     extra = {"shape": list(case[:6]), "kw": kw, "dtype": name,
              "layout": layout}
     if dtype == torch.bfloat16:
+        # the forward's launch plan: 64-row warpgroups a CTA, CTAs
+        from repro_torch.kernels.flash_attention.kernel import warpgroups
+        wg = warpgroups(B, H, Sq)
+        extra["plan"] = {"warpgroups": wg,
+                         "ctas": B * H * -(-Sq // (64 * wg))}
         extra["scaled_err"] = scaled_err(torch, out, want)
         if not extra["scaled_err"] < SCALED_TOL:
             raise AssertionError(f"{label}: max|kernel - plain| / (|plain| "
@@ -568,8 +663,11 @@ def check_decode_case(torch, K, case, dtype, seed, empty_from=None):
     q4, m4 = q[:, :, None], valid[None, None, None, :]
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q4, ke, ve, attn_mask=m4)
+    # the bytes the function needs: q and out, the K/V rows of the valid
+    # slots only (a masked slot's row need not be read) and kpos
     esz = 2 if dtype == torch.bfloat16 else 4
-    bound = least_ms(esz * (2 * B * H * D + 2 * B * Kh * C * D) + 4 * C,
+    bound = least_ms(esz * (2 * B * H * D
+                            + 2 * B * Kh * extra["valid_slots"] * D) + 4 * C,
                      4 * D * B * H * extra["valid_slots"], name)
     return finish_case(
         torch, label, out, want, TOL[name],
@@ -685,7 +783,8 @@ def check_flash_bwd_case(torch, K, case, dtype, seed):
     grads = torch.autograd.grad(out, leaves, dout)
     passes = K["launchers"]["flash_attention"].bwd_launches - before
     bitwise = None
-    if dtype == torch.bfloat16 and case in (QWEN_TRAIN, HYB_TRAIN):
+    if dtype == torch.bfloat16 and case in (QWEN_TRAIN, HYB_TRAIN, L4_TRAIN,
+                                            L4_SPLIT5):
         again = torch.autograd.grad(ops.flash_attention(*leaves, **kw),
                                     leaves, dout)
         bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -1182,7 +1281,7 @@ def model_check(torch, K, name, batch, seq, keep=False):
         elif cfg.family == "vlm":
             x = tfm.embed_tokens(model, inputs[1], cfg, inputs[0])
             blocks = [("layer 0", model.layers[0],
-                       segmentation.layer_fn(cfg), x)]
+                       segmentation.layer_fn(cfg, 0), x)]
         elif cfg.family == "hybrid":
             x = tfm.embed_tokens(model, inputs, cfg)
             kinds = rglru.block_kinds(cfg)
@@ -1196,7 +1295,7 @@ def model_check(torch, K, name, batch, seq, keep=False):
         else:
             x = tfm.embed_tokens(model, inputs, cfg)
             blocks = [("layer 0", model.layers[0],
-                       segmentation.layer_fn(cfg), x)]
+                       segmentation.layer_fn(cfg, 0), x)]
         for label, block, fn, inp in blocks:
             y = fn(block, inp, cfg)
             with plain_versions(K):
@@ -1286,7 +1385,8 @@ def attention_launches(cfg) -> dict:
         Ld = cfg.num_decoder_layers or L
         return {"prefill": {"flash_attention": Le + 2 * Ld},
                 "step": {"decode_attention": Ld, "flash_attention": Ld}}
-    attn = 0 if cfg.family == "ssm" else L
+    # the SSM has no attention; MLA (deepseek-v2) attends with torch ops
+    attn = 0 if cfg.family == "ssm" or cfg.use_mla else L
     return {"prefill": {"flash_attention": attn},
             "step": {"decode_attention": attn}}
 
@@ -1316,7 +1416,9 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits,
     plain versions' (end-to-end logits compared with the kernels' at
     every step, and held to them when ``hold_logits``); and one where
     every kernel call is held to its plain version on the same inputs.
-    ``rescale``: a model built here gets ``rescale_qk``."""
+    ``rescale``: a model built here gets ``rescale_qk``. An MoE model's
+    plain run is given the kernels' run's expert choices
+    (``routed_as``)."""
     from repro_torch.config import get_config
     from repro_torch.models import api
     cfg = get_config(name)
@@ -1332,13 +1434,17 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits,
     def run():
         return generate(torch, model, inputs, start, steps, cfg)
 
+    moe = cfg.family == "moe"
     prefill = prefill_times(torch, model, inputs, cfg)
     free(torch)
     reset_launches(K)
-    outs, times, caches = run()
+    with routed_as() if moe else contextlib.nullcontext() as routing:
+        outs, times, caches = run()
     launches = read_launches(K)
-    with plain_versions(K):
+    with plain_versions(K), (routed_as(routing) if moe else
+                             contextlib.nullcontext()) as forced:
         ref_outs, _, _ = run()
+    del routing
     with checked_calls(K) as checked:
         run()
     per = attention_launches(cfg)
@@ -1376,6 +1482,9 @@ def generate_check(torch, K, name, model, batch, prompt, hold_logits,
            "qk_rescaled": rescale,
            "logits_rel_err_per_step": rel, "argmax_agree_steps": agree,
            "per_call_check": checked}
+    if moe:
+        rec["tokens_rerouted_by_plain"] = forced["tokens_rerouted"]
+        rec["routed_tokens"] = forced["tokens"]
     log(f"  {name}: " + json.dumps(rec))
     del model, caches, outs, ref_outs
     return rec
@@ -1477,7 +1586,7 @@ def segment_profile(torch, high, low):
                         model.dec_layers[0], state, cfg)}
                 n = 1        # the encoder alone is ~1000 launches
             else:
-                fn = segmentation.layer_fn(cfg)
+                fn = segmentation.layer_fn(cfg, 0)
                 blocks = {"layer": lambda: fn(model.layers[0], state, cfg)}
             # a block is ~100 launches: 4 of them stay inside the card's
             # launch queue, so the host never blocks behind the sleep
@@ -1491,6 +1600,280 @@ def segment_profile(torch, high, low):
             log(f"  {cfg.name}: " + json.dumps(rec))
     del hi, lo, state
     free(torch)
+
+
+# ------------------------------------------------------------ MoE family
+def register_moe_cuts() -> None:
+    """Register the depth cuts of MOE_CUTS: the published config with
+    fewer layers, every width kept."""
+    from repro_torch.config import get_config, register
+    for name, (base, layers) in MOE_CUTS.items():
+        register(get_config(base).replace(name=name, num_layers=layers))
+
+
+@contextlib.contextmanager
+def routed_as(recorded=None):
+    """Every MoE block's expert choices, in call order: recorded (with
+    ``recorded`` None), or taken from ``recorded`` (a list, or a record
+    yielded here), the gates renormalised from the block's own
+    probabilities. A routing decision is a discontinuity: two runs that
+    differ by rounding (the kernels against their plain versions, two
+    forms of one model) may rank a token's experts otherwise where two
+    probabilities nearly tie, and a dropped entry past an expert's
+    capacity moves with them; a run given the other's choices differs
+    from it by rounding alone. Yields the record: the choices, and how
+    many tokens' own top-k (as a set) differed from the ones they were
+    given."""
+    from repro_torch.models import moe
+    real = moe._route
+    given = (recorded if recorded is None or isinstance(recorded, list)
+             else recorded["idx"])
+    rec = {"idx": [], "calls": 0, "tokens": 0, "tokens_rerouted": 0}
+
+    def route(x2, p, cfg):
+        probs, gates, idx = real(x2, p, cfg)
+        if given is None:
+            rec["idx"].append(idx)
+        else:
+            forced = given[rec["calls"]]
+            rec["tokens"] += idx.shape[0]
+            own = idx.sort(-1).values != forced.sort(-1).values
+            rec["tokens_rerouted"] += int(own.any(-1).sum())
+            g = probs.gather(-1, forced)
+            gates, idx = g / (g.sum(-1, keepdim=True) + 1e-9), forced
+        rec["calls"] += 1
+        return probs, gates, idx
+    with mock.patch.object(moe, "_route", route):
+        yield rec
+
+
+@contextlib.contextmanager
+def counted_drops():
+    """Entries dropped past an expert's capacity by every MoE block run
+    inside (one device sync a block)."""
+    from repro_torch.models import moe
+    real = moe._dispatch
+    rec = {"dropped": 0, "entries": 0}
+
+    def dispatch(idx, C, E):
+        order, dest, keep = real(idx, C, E)
+        rec["dropped"] += int((~keep).sum())
+        rec["entries"] += keep.numel()
+        return order, dest, keep
+    with mock.patch.object(moe, "_dispatch", dispatch):
+        yield rec
+
+
+def moe_layer_grads(torch, lp, x, cfg, window, chunk, wy):
+    """Gradients of sum(y * wy) + aux of one MoE layer with respect to
+    each parameter and to x."""
+    from repro_torch.models import moe
+    names, params = zip(*lp.named_parameters())
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device="cuda")
+    y, aux = moe.layer_apply(lp, x, positions, cfg, window=window,
+                             chunk=chunk)
+    scalar = (y.float() * wy).sum() + aux
+    grads = torch.autograd.grad(scalar, params + (x,))
+    return dict(zip(names + ("x",), grads))
+
+
+def moe_train_check(torch, K):
+    """Phase 4 (d): one full-width llama4 layer of each kind (chunked,
+    then full) at B2 S2048: the gradients of a fixed scalar of the output
+    (plus aux) with respect to every parameter and x, through the kernels
+    (flash forward and backward launches exact), against the plain
+    versions given the same expert choices, each within TRAIN_GRAD_TOL of
+    its norm; then one full-width deepseek-v2 layer (MLA, no kernel): its
+    gradients finite and non-zero. Each layer's peak memory is reported
+    (MLA's four 512-row q blocks are checkpointed one by one)."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels.flash_attention.kernel import BWD_PASSES
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Maker
+    recs = []
+    for name, index in ((LLAMA4, 0), (LLAMA4, 3), (DEEPSEEK, 0)):
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        window, chunk = moe.layer_kinds(cfg)[index]
+        lp = moe.layer_build(Maker(0, torch.bfloat16, "cuda"), cfg, index)
+        lp.requires_grad_(True)
+        g = torch.Generator(device="cuda").manual_seed(index + 7)
+        x = torch.randn(TRAIN_B, TRAIN_S, cfg.d_model, generator=g,
+                        device="cuda").to(torch.bfloat16).requires_grad_()
+        wy = torch.randn(x.shape, generator=g, device="cuda") / x.numel() ** 0.5
+        label = f"{name} layer {index} (window {window}, chunk {chunk})"
+        reset_launches(K)
+        torch.cuda.reset_peak_memory_stats()
+        with routed_as() as routing:
+            grads = moe_layer_grads(torch, lp, x, cfg, window, chunk, wy)
+        torch.cuda.synchronize()
+        launches = read_launches(K)
+        rec = {"model": label, "batch": TRAIN_B, "seq": TRAIN_S,
+               "launches": launches,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        for n, gr in grads.items():
+            if not (bool(torch.isfinite(gr).all())
+                    and float(gr.float().norm()) > 0):
+                raise AssertionError(f"{label}: gradient of {n} is not "
+                                     f"finite or is zero")
+        need = {k: 0 for k in launches}
+        if cfg.use_mla:
+            rec["grad_tensors"] = len(grads)
+            rec["grad_norms"] = {n: float(gr.float().norm())
+                                 for n, gr in grads.items()}
+        else:
+            need.update(flash_attention=1,
+                        flash_attention_bwd=BWD_PASSES[torch.bfloat16])
+            with plain_versions(K), routed_as(routing) as forced:
+                ref = moe_layer_grads(torch, lp, x, cfg, window, chunk, wy)
+            rel = {n: float((grads[n].float() - r.float()).norm()
+                            / r.float().norm()) for n, r in ref.items()}
+            worst = max(rel, key=rel.get)
+            rec.update(grad_tensors=len(rel), worst_grad=worst,
+                       worst_grad_rel_err=rel[worst],
+                       grad_rel_errs=rel,
+                       tokens_rerouted_by_plain=forced["tokens_rerouted"])
+            if not rel[worst] <= TRAIN_GRAD_TOL:
+                raise AssertionError(f"{label}: gradient of {worst} off "
+                                     f"by {rel[worst]} of its norm (tol "
+                                     f"{TRAIN_GRAD_TOL})")
+            del ref
+        if launches != need:
+            raise AssertionError(f"{label}: launches {launches}, need "
+                                 f"{need}")
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"  {label}: " + json.dumps(rec))
+        recs.append(rec)
+        del lp, x, grads
+        free(torch)
+    return recs
+
+
+def moe_model_check(torch, K, name, batch, seq):
+    """Phase 5 for a cut MoE model: finite logits of the right shape; for
+    llama4, its first chunked and first full layer against the same layer
+    on the plain versions (given the same expert choices) and two calls
+    of a layer giving the same bits; for deepseek, which runs no kernel,
+    its two forms: the last position's logits of prefill (S - 1 tokens)
+    + one ``decode_step`` against ``forward`` over the same S tokens, the
+    two given the same expert choices, with no entry dropped past an
+    expert's capacity in either."""
+    from repro_torch.config import get_config
+    from repro_torch.models import api, moe
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    model = api.build_params(cfg, seed=0, device="cuda")
+    tokens = api.make_batch(cfg, batch, seq, device="cuda")
+    rec = {"model": name, "layers": cfg.num_layers, "batch": batch,
+           "seq": seq}
+    with torch.inference_mode():
+        logits, aux = api.forward(model, tokens, cfg)
+        if tuple(logits.shape) != (batch, seq, cfg.vocab_size) or not (
+                bool(torch.isfinite(logits).all())
+                and math.isfinite(float(aux))):
+            raise AssertionError(f"{name}: logits {tuple(logits.shape)} "
+                                 f"or aux {float(aux)} not finite")
+        rec["aux"] = float(aux)
+        del logits
+        if not cfg.use_mla:
+            x = tfm.embed_tokens(model, tokens, cfg)
+            positions = tfm.positions_for(x)
+            kinds = moe.layer_kinds(cfg)
+            for i in (0, kinds.index((cfg.sliding_window, None))):
+                window, chunk = kinds[i]
+
+                def layer():
+                    return moe.layer_apply(model.layers[i], x, positions,
+                                           cfg, window=window, chunk=chunk)
+                with routed_as() as routing:
+                    y, _ = layer()
+                again, _ = layer()
+                with plain_versions(K), routed_as(routing) as forced:
+                    y_ref, _ = layer()
+                diff, scale = close_enough(f"{name} layer {i}", y, y_ref)
+                rec[f"layer{i}"] = {
+                    "window": window, "chunk": chunk,
+                    "max_abs_diff": diff, "max_abs_out": scale,
+                    "bitwise_repeat": bool(torch.equal(y, again)),
+                    "tokens_rerouted_by_plain": forced["tokens_rerouted"]}
+                if not rec[f"layer{i}"]["bitwise_repeat"]:
+                    raise AssertionError(f"{name} layer {i}: two calls "
+                                         f"gave different outputs")
+        else:
+            B, S = MOE_FORMS_B, MOE_FORMS_S
+            toks = tokens[:B, :S]
+            with routed_as() as routing, counted_drops() as drops:
+                full, _ = api.forward(model, toks, cfg)
+            L = cfg.num_layers
+            by_pos = [i.view(B, S, -1) for i in routing["idx"]]
+            given = ([i[:, :-1].reshape(B * (S - 1), -1) for i in by_pos]
+                     + [i[:, -1] for i in by_pos])
+            with routed_as(given) as forced, counted_drops() as drops2:
+                _, caches = api.prefill(model, toks[:, :-1], cfg,
+                                        extra_capacity=1)
+                last, _ = api.decode_step(model, toks[:, -1:], S - 1,
+                                          caches, cfg)
+            want = full[:, -1:].float()
+            rel = float((last.float() - want).abs().max()
+                        / want.abs().max())
+            rec["two_forms"] = {
+                "batch": B, "seq": S, "rel_err": rel,
+                "dropped": drops["dropped"] + drops2["dropped"],
+                "calls": forced["calls"], "layers": L,
+                "tokens_rerouted_by_decode_form":
+                    forced["tokens_rerouted"]}
+            if drops["dropped"] or drops2["dropped"]:
+                raise AssertionError(f"{name}: entries dropped past "
+                                     f"capacity in the two forms: "
+                                     f"{rec['two_forms']}")
+            if not rel <= MOE_FORMS_TOL:
+                raise AssertionError(f"{name}: prefill + decode_step vs "
+                                     f"forward, last position: {rel} of "
+                                     f"max|logit| (tol {MOE_FORMS_TOL})")
+            rec["mla_forms"] = mla_forms_check(torch, model, cfg)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"  {name}: " + json.dumps(rec))
+    del model
+    return rec
+
+
+def mla_forms_check(torch, model, cfg) -> dict:
+    """The first layer's MLA sublayer in its two forms, over the normed
+    embeddings of random tokens: ``attn_prefill`` of the prompt then
+    ``attn_apply_decode`` step by step (the cache path: the latent and
+    rope key written to a ring, masked by slot position), against
+    ``attn_apply_full`` over all the rows; each form's max |diff| within
+    MLA_FORMS_TOL of max |full|."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import rms_norm
+    B, P, steps = MLA_FORMS_B, MLA_FORMS_PROMPT, MLA_FORMS_STEPS
+    S = P + steps
+    lp = model.layers[0]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device="cuda")
+    h = rms_norm(tfm.embed_tokens(model, tokens, cfg), lp.ln1, cfg.norm_eps)
+    positions = tfm.positions_for(h)
+    full = tfm.attn_apply_full(lp.attn, h, positions, cfg).float()
+    y, cache = tfm.attn_prefill(lp.attn, h[:, :P], positions[:P], cfg, S)
+    ys = [y]
+    for t in range(P, S):
+        y, cache = tfm.attn_apply_decode(lp.attn, h[:, t:t + 1], cache, t,
+                                         cfg)
+        ys.append(y)
+    scale = float(full.abs().max())
+    rec = {"batch": B, "prompt": P, "steps": steps, "max_abs_full": scale,
+           "prefill_rel": float((ys[0].float() - full[:, :P]).abs().max())
+           / scale,
+           "decode_rel": float((torch.cat(ys[1:], 1).float()
+                                - full[:, P:]).abs().max()) / scale}
+    for form in ("prefill_rel", "decode_rel"):
+        if not rec[form] <= MLA_FORMS_TOL:
+            raise AssertionError(f"{cfg.name} MLA sublayer, {form}: "
+                                 f"{rec[form]} of max|full| (tol "
+                                 f"{MLA_FORMS_TOL}): {rec}")
+    return rec
 
 
 # ----------------------------------------------------- load and ops phases
@@ -2022,6 +2405,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    register_moe_cuts()
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import ref as dec_ref
@@ -2089,6 +2473,18 @@ def main() -> int:
         seed += 1
         fl[("path", case[:6], bf16)] = check_flash_case(
             torch, K, case, bf16, seed, path_layout=True)
+    # llama4-scout's (G 5): serving in its chunked and full layers, and
+    # the generate phase's prompt across the 8192 chunk, both kinds
+    for case in (L4_SERVE, L4_SERVE_FULL):
+        for dtype in (f32, bf16):
+            seed += 1
+            fl[("path", case[:6], str(case[6]), dtype)] = check_flash_case(
+                torch, K, case, dtype, seed, path_layout=True)
+    for case in (L4_PROMPT, L4_PROMPT_FULL):
+        seed += 1
+        fl[("path", case[:6], str(case[6]), bf16)] = check_flash_case(
+            torch, K, case, bf16, seed, path_layout=True)
+        free(torch)
 
     log("[kernels] decode_attention vs its plain version")
     dec = {}
@@ -2111,6 +2507,10 @@ def main() -> int:
     seed += 1
     dec[(DEC_H2O_D128[:5], bf16)] = check_decode_case(
         torch, K, DEC_H2O_D128, bf16, seed)
+    for case in (DEC_L4, DEC_L4_FULL):        # llama4's wrapped 8192 ring
+        seed += 1
+        dec[(case[:5], str(case[5]), bf16)] = check_decode_case(
+            torch, K, case, bf16, seed)
 
     log("[kernels] rglru_scan vs its plain version")
     rg = {}
@@ -2135,6 +2535,11 @@ def main() -> int:
             bwd[(case[:6], dtype)] = check_flash_bwd_case(torch, K, case,
                                                           dtype, seed)
             free(torch)
+    for case in (L4_TRAIN, L4_SPLIT5):        # llama4's G 5, bf16
+        seed += 1
+        bwd[(case[:6], bf16)] = check_flash_bwd_case(torch, K, case, bf16,
+                                                     seed)
+        free(torch)
     for case in RG_BWD_CASES:
         for with_h0 in (True, False):
             seed += 1
@@ -2169,6 +2574,10 @@ def main() -> int:
         f"steps of launch.train.train, B{TRAIN_B} S{TRAIN_S}")
     train_qwen = train_full(torch, K)
     free(torch)
+    log(f"[train] (d) one full-width layer of {LLAMA4} of each kind "
+        f"(chunked, full) and one of {DEEPSEEK}, B{TRAIN_B} S{TRAIN_S}: "
+        f"gradients of a scalar of the output plus aux")
+    train_moe = moe_train_check(torch, K)
 
     log("[model] full-size models, kernels vs plain versions in a block "
         "of each kind")
@@ -2184,6 +2593,9 @@ def main() -> int:
     free(torch)
     for name, batch in ((H2O, 4), (SEAMLESS, 2), (LLAVA, 4)):
         model_check(torch, K, name, batch, 48)   # pairs F and J's shapes
+        free(torch)
+    for name in (LLAMA4_L8, DEEPSEEK_L6):        # pairs H and D, high
+        moe_model_check(torch, K, name, 2, 48)
         free(torch)
 
     log(f"[generate] prefill + {GEN_STEPS} decode steps, kernels vs plain "
@@ -2217,14 +2629,18 @@ def main() -> int:
         gen[name] = generate_check(torch, K, name, None, batch, prompt,
                                    hold_logits=True, rescale=True)
         free(torch)
+    for name, batch, prompt, rescale in MOE_GENERATE:
+        gen[name] = generate_check(torch, K, name, None, batch, prompt,
+                                   hold_logits=True, rescale=rescale)
+        free(torch)
 
     served = {}
-    for high, low in PAIRS:
+    for high, low in PAIRS + MOE_PAIRS:
         log(f"[serve] serve_pair({high!r}, {low!r}, reduced=False, "
             f"requests={REQUESTS}, measure_runs={MEASURE_RUNS})")
         fikit = serve_run(torch, K, high, low, "fikit")
         sharing = serve_run(torch, K, high, low, "sharing")
-        served[low] = fikit
+        served[(high, low)] = fikit
         log(f"  high-priority JCT: FIKIT {fikit['high_jct_ms']:.3f} ms vs "
             f"SHARING {sharing['high_jct_ms']:.3f} ms (ratio "
             f"{fikit['high_jct_ms'] / sharing['high_jct_ms']:.3f}); low: "
@@ -2233,7 +2649,7 @@ def main() -> int:
             f"peak memory FIKIT {fikit['peak_mem_bytes'] / 2**30:.1f} GiB, "
             f"SHARING {sharing['peak_mem_bytes'] / 2**30:.1f} GiB")
 
-    for high, low in PAIRS:
+    for high, low in PAIRS + MOE_PAIRS:
         log(f"[profile] {high} + {low}, measurement phase: SK/SG per "
             f"segment, one block's device time")
         segment_profile(torch, high, low)
@@ -2258,18 +2674,18 @@ def main() -> int:
     ops_verbs(torch, K, OPS_DB)
     ops_recover(torch, K, OPS_DB)
 
-    pair_e = served[HYB]["launches"]
+    pair_e = served[(HI, HYB)]["launches"]
 
-    def flash_launches(low, case):
+    def flash_launches(pair, case):
         """flash launches at ``case``'s shape in the FIKIT serve_pair run
-        whose low service is ``low``."""
-        return served[low]["flash_launches_by_shape"].get(shape_key(case),
-                                                          0)
+        of ``pair`` (high, low)."""
+        return served[pair]["flash_launches_by_shape"].get(shape_key(case),
+                                                           0)
     entries = [
         kernel_entry(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:79",
-            flash_launches(HYB, HI_SHAPE), fl[("path", HI_SHAPE[:6], bf16)],
+            flash_launches((HI, HYB), HI_SHAPE), fl[("path", HI_SHAPE[:6], bf16)],
             "B2 H32 Kh8 S48 D128 bf16 (qwen3-4b serving, attend's "
             "transposed views); launches: at this shape, one FIKIT "
             "serve_pair run of pair E"),
@@ -2289,7 +2705,7 @@ def main() -> int:
         kernel_entry(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:79",
-            flash_launches(H2O, H2O_SHAPE),
+            flash_launches((LO, H2O), H2O_SHAPE),
             fl[("path", H2O_SHAPE[:6], bf16)],
             "B4 H32 Kh8 S48 D120 bf16 (h2o-danube-3-4b serving, the D 120 "
             "instance); launches: at this shape, one FIKIT serve_pair run "
@@ -2297,14 +2713,14 @@ def main() -> int:
         kernel_entry(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:79",
-            flash_launches(LLAVA, LLAVA_SHAPE),
+            flash_launches((SEAMLESS, LLAVA), LLAVA_SHAPE),
             fl[("path", LLAVA_SHAPE[:6], bf16)],
             "B4 H32 Kh8 S2881 D128 bf16 (llava-next-mistral-7b serving); "
             "launches: at this shape, one FIKIT serve_pair run of pair J"),
         kernel_entry(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:79",
-            flash_launches(LLAVA, CROSS_48),
+            flash_launches((SEAMLESS, LLAVA), CROSS_48),
             fl[("path", CROSS_48[:6], bf16)],
             "B2 H16 Sq48 Sk1024 D64 non-causal bf16 (seamless-m4t-medium "
             "cross-attention, serving); launches: at this shape, one FIKIT "
@@ -2334,6 +2750,31 @@ def main() -> int:
             "[2, 2100, 4096] fp32, no h0 (recurrentgemma-9b's train "
             "shape); launches: one train step of the (rec, rec, attn) "
             "pattern"),
+        kernel_entry(
+            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:79",
+            flash_launches(MOE_PAIRS[0], L4_SERVE),
+            fl[("path", L4_SERVE[:6], str(L4_SERVE[6]), bf16)],
+            "B2 H40 Kh8 S48 D128 chunk 8192 bf16 (llama4-scout-17b-a16e "
+            "serving, G 5); launches: at this shape (chunked and full "
+            "layers), one FIKIT serve_pair run of pair H"),
+        kernel_entry(
+            "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:71",
+            gen[LLAMA4_L4]["launches"]["decode_attention"],
+            dec[(DEC_L4[:5], str(DEC_L4[5]), bf16)],
+            "B1 H40 Kh8 C8192 D128 chunk 8192 bf16 wrapped ring "
+            "(llama4-scout-17b-a16e generation, G 5); launches: llama4 "
+            f"({LLAMA4_L4}) generate, {GEN_STEPS} steps"),
+        kernel_entry(
+            "flash_attention_bwd",
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            FLASH_BWD_REPLACES,
+            sum(r["launches"]["flash_attention_bwd"] for r in train_moe),
+            bwd[(L4_TRAIN[:6], bf16)],
+            f"B2 H40 Kh8 S2048 D128 bf16 (llama4-scout-17b-a16e's layer "
+            f"at the train shape, G 5); launches: phase 4 (d), one "
+            f"chunked and one full layer, {bwd_bf16} kernels a call"),
     ]
     unused = [e["shape"] for e in entries if e["launches"] < 1]
     if unused:

@@ -5,13 +5,14 @@ JAX package's msgpack layout, which needs ``msgpack``).
 
     PYTHONPATH=src python examples/torch_train_tiny.py --device cpu \\
         [--steps 200]
-    PYTHONPATH=src python examples/torch_train_tiny.py --full --steps 4 \\
-        --batch 2 --seq 2048 --ckpt ''
+    PYTHONPATH=src python examples/torch_train_tiny.py --arch qwen3-4b \\
+        --full --steps 4 --batch 2 --seq 2048 --ckpt ''
 
 (``--ckpt ''`` where ``msgpack`` is not installed.) The default arch is
-qwen3-4b: the JAX package's example trains the MoE
-llama4-scout, whose family the port brings with the sharding and MoE
-slice.
+the JAX package's example's, the MoE llama4-scout-17b-a16e (reduced: 4
+experts, top-1 + a shared expert, chunked and full attention). At full
+width its 109 B parameters do not fit one card; training it there waits
+for the sharding slice, so ``--full`` takes another arch, e.g. qwen3-4b.
 """
 import argparse
 import os
@@ -21,7 +22,7 @@ from repro_torch.launch.train import train
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=200)
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="llama4-scout-17b-a16e")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--full", action="store_true",

@@ -96,7 +96,7 @@ def profile_case(torch, cs, name: str, batch: int, seq: int) -> dict:
     make = Maker(0, dtype, "cuda")
     lp = (mamba2.layer_build(make, cfg, 0) if cfg.family == "ssm"
           else tfm.layer_build(make, cfg, 0))
-    fn = segmentation.layer_fn(cfg)
+    fn = segmentation.layer_fn(cfg, 0)
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(batch, seq, cfg.d_model, generator=g,
                     device="cuda").to(dtype)

@@ -1607,11 +1607,25 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
                                  static_cast<cuuint64_t>(2 * st[2])};
   const cuuint32_t box[4] = {CB, BM, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  auto encode_map = [&] {
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(ptr), dims, strides, box, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode_map();
+  // a driver call: it needs a context current on the calling thread, and
+  // a thread that has made no CUDA runtime call yet has none (autograd's
+  // device thread, where PyTorch's allocator served every tensor from its
+  // cache). Make the primary context of the device holding ``ptr``
+  // current, then encode again.
+  cudaPointerAttributes a;
+  if (r == CUDA_ERROR_INVALID_CONTEXT &&
+      cudaPointerGetAttributes(&a, ptr) == cudaSuccess &&
+      cudaSetDevice(a.device) == cudaSuccess)
+    r = encode_map();
+  return r == CUDA_SUCCESS;
 }
 
 template <int D, int WG>

@@ -28,15 +28,19 @@ engine with batched requests — the end-to-end serving path of the port
     ... serve workers run -n 2 --jobstore build/fikit.db
     ... serve workers status --jobstore build/fikit.db
 
-Any ported config can take either role: the dense qwen3-4b,
-stablelm-1.6b, granite-20b and h2o-danube-3-4b, the mamba2-2.7b SSM,
-the recurrentgemma-9b hybrid (served as ``rec`` and ``attn`` block
-segments), the seamless-m4t-medium encoder-decoder (``encode``, then
-``dec_layer`` segments) or the llava-next-mistral-7b VLM. The default
-pair, qwen3-4b over mamba2-2.7b, is pair A of the paper's Fig 16;
-``--low granite-20b`` is pair B and ``--low recurrentgemma-9b`` pair E;
-``--high stablelm-1.6b --low h2o-danube-3-4b`` is pair F and ``--high
-seamless-m4t-medium --low llava-next-mistral-7b`` pair J. ``--full`` runs the published widths and depths (random
+Any config can take either role: the dense qwen3-4b, stablelm-1.6b,
+granite-20b and h2o-danube-3-4b, the MoE llama4-scout-17b-a16e and
+deepseek-v2-236b (MLA), the mamba2-2.7b SSM, the recurrentgemma-9b
+hybrid (served as ``rec`` and ``attn`` block segments), the
+seamless-m4t-medium encoder-decoder (``encode``, then ``dec_layer``
+segments) or the llava-next-mistral-7b VLM. The default pair, qwen3-4b
+over mamba2-2.7b, is pair A of the paper's Fig 16; ``--low granite-20b``
+is pair B and ``--low recurrentgemma-9b`` pair E; ``--high
+stablelm-1.6b --low h2o-danube-3-4b`` is pair F, ``--high
+seamless-m4t-medium --low llava-next-mistral-7b`` pair J, ``--high
+llama4-scout-17b-a16e --low qwen3-4b`` pair H and ``--high
+deepseek-v2-236b --low mamba2-2.7b`` pair D (at full width the two MoE
+models fit one card only cut in depth). ``--full`` runs the published widths and depths (random
 weights); without it the services run at ``.reduced()`` scale, where
 mamba2's SSD chunk (32) must divide the sequence length (48 under
 ``submit``, as in the JAX package, so the reduced default pair stops

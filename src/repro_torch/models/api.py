@@ -1,6 +1,7 @@
-"""Uniform model API (``repro.models.api``) for the families this package
-runs so far: the dense decoder, the mamba2 SSM, the recurrentgemma
-hybrid, the encoder-decoder (seamless-m4t) and the VLM (llava-next).
+"""Uniform model API (``repro.models.api``) over all architecture
+families: the dense decoder, the MoE decoder (llama4-scout, deepseek-v2
+with MLA), the mamba2 SSM, the recurrentgemma hybrid, the
+encoder-decoder (seamless-m4t) and the VLM (llava-next).
 
     model = build_params(cfg, seed, device)   # nn.Module, random weights
     logits, aux = forward(model, batch, cfg)
@@ -13,7 +14,8 @@ hybrid, the encoder-decoder (seamless-m4t) and the VLM (llava-next).
 
 A batch is int32 tokens [B, S], or a tuple for the encoder-decoder
 (frames, tokens) and the VLM (patches, tokens). Caches are one entry per
-layer (the JAX package stacks the dense, SSM and encoder-decoder models'
+layer (the JAX package stacks the dense, MoE, SSM and encoder-decoder
+models'
 over layers), and ``decode_step`` updates KV caches in place;
 ``pos`` is a host int, so no layer reads a position back from the card
 (the SSM state is position-free and ignores it).
@@ -25,22 +27,18 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.config import DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig
-from repro_torch.models import encdec, mamba2, rglru, transformer, vlm
+from repro_torch.models import encdec, mamba2, moe, rglru, transformer, vlm
 from repro_torch.models.layers import torch_dtype
 
-#: the slice of the port that brings each family still missing
-_LATER = {MOE: "the MoE/MLA slice"}
-
-_MODULES = {DENSE: transformer, SSM: mamba2, HYBRID: rglru, ENCDEC: encdec,
-            VLM: vlm}
+_MODULES = {DENSE: transformer, MOE: moe, SSM: mamba2, HYBRID: rglru,
+            ENCDEC: encdec, VLM: vlm}
 
 
 def _mod(cfg: ModelConfig):
     if cfg.family in _MODULES:
         return _MODULES[cfg.family]
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family} family is not ported yet; it comes "
-        f"with {_LATER.get(cfg.family, 'a later slice')}")
+    raise NotImplementedError(f"{cfg.name}: no model family "
+                              f"{cfg.family!r} in this package")
 
 
 def build_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -48,7 +46,10 @@ def build_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
 
 
 def forward(model, batch, cfg: ModelConfig) -> Tuple[Any, Any]:
-    """Returns (logits, aux_loss)."""
+    """Returns (logits, aux_loss): the MoE family's load-balance loss
+    summed over its layers, zero for the others."""
+    if cfg.family == MOE:
+        return moe.forward(model, batch, cfg)
     logits = _mod(cfg).forward(model, batch, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 

@@ -1,8 +1,10 @@
 """Attention with GQA and causal / sliding-window / chunked masks
 (``repro.models.attention``): full-sequence attention through the flash
 attention kernel, and the ring-buffer KV cache with one-token decode
-attention through the decode attention kernel. MLA comes with the MoE/MLA
-slice.
+attention through the decode attention kernel; and MLA (deepseek-v2),
+compressed-KV attention, as torch ops (the JAX package's MLA is jnp too,
+and its q/k head, 128 + 64 rope, differs from its v head, 128, so no
+flash instance applies).
 
 The port updates a cache in place (``cache_write``) where the JAX package
 returns a new one; every function still returns the cache, so callers
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.models import layers
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,24 +104,27 @@ def cache_write(cache: KVCache, k_new, v_new, pos: int) -> KVCache:
     return cache
 
 
-def cache_prefill(cache: KVCache, k_all, v_all, start: int = 0) -> KVCache:
-    """Bulk write S tokens (positions start..start+S-1). S < capacity
-    writes their slots; S >= capacity keeps the last C tokens, reordered
-    so that slot i holds the position p with p % C == i."""
-    S = k_all.shape[1]
+def cache_prefill(cache, *new, start: int = 0):
+    """Bulk write S tokens (positions start..start+S-1) into a ring cache:
+    a ``KVCache`` given (k_all, v_all) or an ``MLACache`` given (c_all,
+    kr_all), each [B, S, ...], one tensor for each field before ``pos``.
+    S < capacity writes their slots; S >= capacity keeps the last C
+    tokens, reordered so that slot i holds the position p with
+    p % C == i."""
+    fields = cache[:-1]
+    S = new[0].shape[1]
     C = cache.capacity
     dev = cache.pos.device
     if S >= C:
-        k = k_all[:, S - C:].to(cache.k.dtype)
-        v = v_all[:, S - C:].to(cache.v.dtype)
         p = torch.arange(start + S - C, start + S, dtype=torch.int32,
                          device=dev)
         order = torch.argsort(torch.remainder(p, C))
-        return KVCache(k[:, order], v[:, order], p[order])
+        return type(cache)(*(n[:, S - C:].to(f.dtype)[:, order]
+                             for f, n in zip(fields, new)), p[order])
     pos = torch.arange(start, start + S, dtype=torch.int32, device=dev)
     slots = torch.remainder(pos, C).long()
-    cache.k[:, slots] = k_all.to(cache.k.dtype)
-    cache.v[:, slots] = v_all.to(cache.v.dtype)
+    for f, n in zip(fields, new):
+        f[:, slots] = n.to(f.dtype)
     cache.pos[slots] = pos
     return cache
 
@@ -137,3 +143,106 @@ def decode_attend(q, cache: KVCache, pos: int, *, window=None, chunk=None,
         q[:, 0], cache.k.transpose(1, 2), cache.v.transpose(1, 2), cache.pos,
         pos, window=window, chunk=chunk, scale=scale)
     return out[:, None]
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): compressed-KV attention. Cache = (c_kv, k_rope, pos).
+# ---------------------------------------------------------------------------
+NEG_INF = -2.0e38
+
+
+def _mask(qpos, kpos, *, causal: bool):
+    """qpos: [..., Q], kpos: [..., K] int32 -> bool [..., Q, K]: the JAX
+    package's ``_mask`` with no window and no chunk (MLA takes neither).
+    kpos < 0 marks an invalid (unwritten) cache slot."""
+    q = qpos[..., :, None]
+    k = kpos[..., None, :]
+    m = k >= 0
+    if causal:
+        m = m & (k <= q)
+    return m
+
+
+class MLACache(NamedTuple):
+    c: torch.Tensor      # [B, C, r]   compressed latent
+    kr: torch.Tensor     # [B, C, Dr]  rope'd shared key part
+    pos: torch.Tensor    # [C] int32, position held in each slot (-1 = empty)
+
+    @property
+    def capacity(self) -> int:
+        return self.c.shape[1]
+
+
+def init_mla_cache(batch: int, capacity: int, r: int, rope_dim: int,
+                   dtype: torch.dtype, device="cuda") -> MLACache:
+    return MLACache(
+        c=torch.zeros((batch, capacity, r), dtype=dtype, device=device),
+        kr=torch.zeros((batch, capacity, rope_dim), dtype=dtype,
+                       device=device),
+        pos=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+    )
+
+
+def _mla_block(qc, qr, c, k_rope, w_uv, qpos, kpos, causal, scale):
+    """One block of query rows: logits qc.c + qr.kr in fp32 (the bf16
+    inputs widened, as the JAX package's ``preferred_element_type``
+    does), masked, softmax in fp32 (a fully masked row gives zeros), p
+    cast to c's dtype, then p.c and .w_uv. qc: [B, Q, H, r], qr: [B, Q,
+    H, Dr] -> [B, Q, H, dv]."""
+    lg = (torch.einsum("bqhr,bsr->bhqs", qc.float(), c.float())
+          + torch.einsum("bqhd,bsd->bhqs", qr.float(), k_rope.float())
+          ) * scale
+    m = _mask(qpos, kpos, causal=causal)
+    lg = torch.where(m[:, None], lg, NEG_INF)
+    mx = torch.clamp_min(lg.amax(dim=-1, keepdim=True), -1e30)
+    p = torch.exp(lg - mx)
+    p = (p / (p.sum(dim=-1, keepdim=True) + 1e-30)).to(c.dtype)
+    ctx = torch.einsum("bhqs,bsr->bqhr", p, c)
+    return torch.einsum("bqhr,hrv->bqhv", ctx, w_uv)
+
+
+def mla_attend_full(q_nope, q_rope, c, k_rope, w_uk, w_uv, qpos, kpos, *,
+                    causal: bool = True, q_block: int = 512):
+    """Absorbed MLA attention over full sequences (the JAX package's
+    ``mla_attend_full``): ``qc = q_nope . w_uk``, logits times
+    ``(dh + Dr) ** -0.5``, in blocks of ``q_block`` query rows. The JAX
+    package needs Sq <= q_block or a multiple of it; here the last block
+    may be short.
+
+    q_nope: [B, Sq, H, dh], q_rope: [B, Sq, H, Dr], c: [B, Sk, r],
+    k_rope: [B, Sk, Dr], w_uk: [H, dh, r], w_uv: [H, r, dv], qpos: [Sq],
+    kpos: [Sk]. Returns [B, Sq, H, dv].
+    """
+    Sq, dh = q_nope.shape[1], q_nope.shape[-1]
+    scale = (dh + q_rope.shape[-1]) ** -0.5
+    qc = torch.einsum("bqhd,hdr->bqhr", q_nope, w_uk)       # absorb W_uk
+    qpos, kpos = qpos[None], kpos[None]
+    if Sq <= q_block:
+        return _mla_block(qc, q_rope, c, k_rope, w_uv, qpos, kpos, causal,
+                          scale)
+    # as the JAX package's jax.checkpoint of each block: where autograd
+    # records, one block's fp32 logits live at a time, not Sq x Sk of them
+    return torch.cat([
+        layers.recompute(_mla_block, qc[:, i:i + q_block],
+                         q_rope[:, i:i + q_block], c, k_rope, w_uv,
+                         qpos[:, i:i + q_block], kpos, causal, scale)
+        for i in range(0, Sq, q_block)], dim=1)
+
+
+def mla_cache_write(cache: MLACache, c_new, kr_new, pos: int) -> MLACache:
+    """Write one token (c_new [B, 1, r], kr_new [B, 1, Dr]) at position
+    ``pos`` (a host int) into slot pos % C, in place."""
+    slot = pos % cache.capacity
+    cache.c[:, slot] = c_new[:, 0].to(cache.c.dtype)
+    cache.kr[:, slot] = kr_new[:, 0].to(cache.kr.dtype)
+    cache.pos[slot] = pos
+    return cache
+
+
+def mla_decode_attend(q_nope, q_rope, cache: MLACache, w_uk, w_uv,
+                      pos: int):
+    """One-token MLA attention against a cache; ``pos`` is the token's
+    position as a host int."""
+    qpos = torch.full((1,), pos, dtype=torch.int32, device=q_nope.device)
+    return mla_attend_full(q_nope, q_rope, cache.c, cache.kr, w_uk, w_uv,
+                           qpos, cache.pos, causal=True)

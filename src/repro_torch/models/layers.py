@@ -87,7 +87,14 @@ def remat(cfg, fn, *args):
     set and autograd records: its activations are dropped after the
     forward and recomputed in the backward, as ``jax.checkpoint`` does in
     the JAX package (its places: each layer or block of the forward)."""
-    if cfg.remat and _records(args):
+    return recompute(fn, *args) if cfg.remat else fn(*args)
+
+
+def recompute(fn, *args):
+    """``fn(*args)``, checkpointed where autograd records, whatever the
+    config (the places the JAX package wraps in ``jax.checkpoint``
+    unconditionally, such as MLA's query blocks)."""
+    if _records(args):
         # no random op runs inside a layer: no RNG state to replay
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)

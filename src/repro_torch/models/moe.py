@@ -1,0 +1,293 @@
+"""Mixture-of-Experts decoder LM (llama4-scout: 16 experts top-1 + a shared
+expert + chunked attention; deepseek-v2: 160 experts top-6 + 2 shared
+experts + MLA): ``repro.models.moe`` as PyTorch modules, on one device.
+
+The MoE block is the JAX package's single-device branch (no mesh), op for
+op: router logits in fp32, softmax, the k largest gates (the lower
+expert first on a tie, as ``jax.lax.top_k``), renormalised; a sort-based,
+capacity-bounded dispatch (the stable argsort of the expert ids decides
+which entries past an expert's capacity C are dropped) into an
+[E * C + 1, D] buffer whose last row takes the dropped entries; the
+expert products as batched matrix products; the inverse permutation, the
+gate-weighted sum over k; and the Switch load-balance aux loss. The
+dispatch is jnp in the JAX package, so it runs on torch ops here. Every
+kept entry has its own buffer row and the dropped ones add zeros to the
+last row, so the buffer's bits do not depend on the order of the adds.
+The expert-parallel branch comes with the sharding slice.
+
+Layers are grouped by the chunk pattern (llama4: three chunked layers,
+then one full); under ``cfg.remat`` each group is checkpointed when
+autograd records, as the JAX package's ``_grouped_scan`` checkpoints its
+body. Parameters keep the JAX names and shapes (``layers.<i>.moe.w1`` ...,
+``repro_torch.bridge``).
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.config import MOE, ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import Maker, remat, rms_norm, torch_dtype
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+class MoEFFN(nn.Module):
+    """The JAX package's ``moe_ffn_build``: router [D, E] (scale 0.1),
+    w1, w3 [E, D, F], w2 [E, F, D]; the shared expert's sh_gate, sh_up
+    [D, Fs], sh_down [Fs, D] with Fs = F * num_shared_experts."""
+
+    def __init__(self, make: Maker, cfg: ModelConfig, prefix: str = ""):
+        super().__init__()
+        D, E = cfg.d_model, cfg.num_experts
+        Fe = cfg.resolved_moe_d_ff
+        self.router = make(prefix + "router", (D, E), scale=0.1)
+        self.w1 = make(prefix + "w1", (E, D, Fe))           # gate proj
+        self.w3 = make(prefix + "w3", (E, D, Fe))           # up proj
+        self.w2 = make(prefix + "w2", (E, Fe, D))           # down proj
+        if cfg.num_shared_experts:
+            Fs = Fe * cfg.num_shared_experts
+            self.sh_gate = make(prefix + "sh_gate", (D, Fs))
+            self.sh_up = make(prefix + "sh_up", (D, Fs))
+            self.sh_down = make(prefix + "sh_down", (Fs, D))
+
+
+class MoELayer(nn.Module):
+    """ln1, attn (GQA, or MLA under ``cfg.use_mla``), ln2, moe."""
+
+    def __init__(self, make: Maker, cfg: ModelConfig, prefix: str = ""):
+        super().__init__()
+        D = cfg.d_model
+        self.ln1 = make(prefix + "ln1", (D,), "zeros")
+        self.attn = tfm.attn_build(make, cfg, prefix=prefix + "attn.")
+        self.ln2 = make(prefix + "ln2", (D,), "zeros")
+        self.moe = MoEFFN(make, cfg, prefix=prefix + "moe.")
+
+
+def layer_build(make: Maker, cfg: ModelConfig, index: int) -> MoELayer:
+    return MoELayer(make, cfg, prefix=f"layers.{index}.")
+
+
+class MoEModel(nn.Module):
+    """embed [V, D], layers.<i> (MoELayer), final_norm [D], lm_head
+    [D, V] (absent with tied embeddings)."""
+
+    def __init__(self, cfg: ModelConfig, seed: int = 0, device="cuda"):
+        super().__init__()
+        if cfg.family != MOE:
+            raise ValueError(f"{cfg.name} is not an MoE model")
+        self.cfg = cfg
+        make = Maker(seed, torch_dtype(cfg.dtype), device)
+        self.embed = make("embed", (cfg.vocab_size, cfg.d_model), "embed")
+        self.layers = nn.ModuleList(layer_build(make, cfg, i)
+                                    for i in range(cfg.num_layers))
+        self.final_norm = make("final_norm", (cfg.d_model,), "zeros")
+        if not cfg.tie_embeddings:
+            self.lm_head = make("lm_head", (cfg.d_model, cfg.vocab_size))
+
+    def forward(self, tokens):
+        return forward(self, tokens, self.cfg)
+
+
+def build_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> MoEModel:
+    """Random weights from ``seed``, made on ``device``."""
+    return MoEModel(cfg, seed, device)
+
+
+# ---------------------------------------------------------------------------
+# Routing + capacity dispatch
+# ---------------------------------------------------------------------------
+def _capacity(num_tokens: int, cfg: ModelConfig) -> int:
+    c = int(math.ceil(cfg.capacity_factor * num_tokens * cfg.top_k
+                      / max(cfg.num_experts, 1)))
+    c = max(c, 8)
+    return min(-(-c // 8) * 8, num_tokens * cfg.top_k)
+
+
+def _route(x2, p: MoEFFN, cfg: ModelConfig):
+    """(probs [T, E] fp32, renormalised gates [T, k], expert ids [T, k])."""
+    logits = x2.float() @ p.router.float()
+    probs = torch.softmax(logits, dim=-1)
+    # the k largest, the lower expert first on a tie (jax.lax.top_k's
+    # order, which torch.topk does not promise)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[:, :cfg.top_k], idx[:, :cfg.top_k]
+    gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
+    return probs, gates, idx
+
+
+def _dispatch(idx, C: int, E: int):
+    """The sort-based dispatch of the T * k entries (token-major): their
+    order sorted stably by expert, each entry's buffer row (expert * C +
+    its place in the expert's group, or the trash row E * C past
+    capacity) and whether it is kept, all in sorted order."""
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    n = torch.arange(flat_e.numel(), device=idx.device)
+    pos_in_grp = n - torch.searchsorted(sorted_e, sorted_e, side="left")
+    keep = pos_in_grp < C
+    dest = torch.where(keep, sorted_e * C + pos_in_grp, E * C)
+    return order, dest, keep
+
+
+def _moe_ffn_block(x2, p: MoEFFN, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routed experts' contribution to tokens x2 [T, D]. Returns (y [T, D],
+    the aux loss as an fp32 scalar)."""
+    T, D = x2.shape
+    E, k = cfg.num_experts, cfg.top_k
+    probs, gates, idx = _route(x2, p, cfg)
+    C = _capacity(T, cfg)
+    order, dest, keep = _dispatch(idx, C, E)
+    flat_t = torch.div(order, k, rounding_mode="floor")    # token of each
+    gathered = torch.where(keep[:, None], x2[flat_t], 0)
+    buf = x2.new_zeros((E * C + 1, D)).index_add(0, dest, gathered)
+    buf = buf[:E * C].reshape(E, C, D)
+
+    h = F.silu(torch.bmm(buf, p.w1).float()).to(x2.dtype)
+    h = h * torch.bmm(buf, p.w3)
+    out = torch.bmm(h, p.w2).reshape(E * C, D)
+    out = torch.cat([out, out.new_zeros((1, D))], dim=0)
+
+    contrib_sorted = out[dest] * keep[:, None].to(out.dtype)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    contrib = contrib_sorted[inv]                          # [T * k, D]
+    y = (contrib * gates.reshape(-1, 1).to(contrib.dtype)
+         ).reshape(T, k, D).sum(dim=1)
+
+    # Switch-style load-balance aux loss over all experts
+    me = probs.mean(dim=0)                                 # [E]
+    ce = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
+    aux = E * torch.sum(me * ce) * (1.0 / k)
+    return y, aux
+
+
+def _shared_expert(x2, p: MoEFFN):
+    g = x2 @ p.sh_gate
+    u = x2 @ p.sh_up
+    h = F.silu(g.float()).to(x2.dtype) * u
+    return h @ p.sh_down
+
+
+def moe_apply(p: MoEFFN, x, cfg: ModelConfig):
+    """x: [B, S, D] -> (y [B, S, D], aux scalar): the JAX package's
+    ``moe_apply`` with no mesh."""
+    B, S, D = x.shape
+    x2 = x.reshape(B * S, D)
+    y, aux = _moe_ffn_block(x2, p, cfg)
+    if cfg.num_shared_experts:
+        y = y + _shared_expert(x2, p)
+    return y.reshape(B, S, D), aux
+
+
+# ---------------------------------------------------------------------------
+# Layers + model
+# ---------------------------------------------------------------------------
+def layer_kinds(cfg: ModelConfig) -> List[Tuple[Optional[int],
+                                                Optional[int]]]:
+    """(window, chunk) per layer. llama4: 3-of-4 chunked, every 4th
+    full."""
+    kinds = []
+    for i in range(cfg.num_layers):
+        if cfg.chunk_pattern and (i + 1) % cfg.chunk_pattern == 0:
+            kinds.append((cfg.sliding_window, None))       # full/NoPE layer
+        else:
+            kinds.append((cfg.sliding_window, cfg.attention_chunk))
+    return kinds
+
+
+def layer_apply(lp: MoELayer, x, positions, cfg: ModelConfig, *, window,
+                chunk):
+    """One layer over x [B, S, D] -> (x, aux)."""
+    h = rms_norm(x, lp.ln1, cfg.norm_eps)
+    x = x + tfm.attn_apply_full(lp.attn, h, positions, cfg, window=window,
+                                chunk=chunk)
+    h = rms_norm(x, lp.ln2, cfg.norm_eps)
+    y, aux = moe_apply(lp.moe, h, cfg)
+    return x + y, aux
+
+
+def _groups(cfg: ModelConfig) -> List[range]:
+    """The layer indices of each chunk-pattern group."""
+    L, pat = cfg.num_layers, cfg.chunk_pattern or 1
+    assert L % pat == 0, (L, pat)
+    return [range(g, g + pat) for g in range(0, L, pat)]
+
+
+def forward(model: MoEModel, tokens, cfg: ModelConfig, extra_embeds=None):
+    """tokens: [B, S] -> (logits [B, S, V], aux summed over layers). Each
+    chunk-pattern group is checkpointed under ``cfg.remat`` when autograd
+    records."""
+    x = tfm.embed_tokens(model, tokens, cfg, extra_embeds)
+    positions = tfm.positions_for(x)
+    kinds = layer_kinds(cfg)
+
+    def group(idx, x, *lps):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, lp in zip(idx, lps):
+            window, chunk = kinds[i]
+            x, a = layer_apply(lp, x, positions, cfg, window=window,
+                               chunk=chunk)
+            aux = aux + a
+        return x, aux
+
+    auxes = []
+    for idx in _groups(cfg):
+        x, aux = remat(cfg, group, idx, x, *(model.layers[i] for i in idx))
+        auxes.append(aux)
+    return tfm.unembed(model, x, cfg), torch.stack(auxes).sum()
+
+
+def prefill(model: MoEModel, tokens, cfg: ModelConfig, extra_embeds=None,
+            extra_capacity: int = 0):
+    """Returns (last-position logits [B, 1, V], one cache per layer).
+    Every layer's ring has the capacity ``cache_capacity(S +
+    extra_capacity, window, chunk)``, as in the JAX package: past the
+    chunk (8192 positions for llama4) the full-attention layers, too,
+    keep and decode over the last ``chunk`` positions only, where
+    ``forward`` attends over all of them."""
+    x = tfm.embed_tokens(model, tokens, cfg, extra_embeds)
+    positions = tfm.positions_for(x)
+    capacity = attn.cache_capacity(x.shape[1] + extra_capacity,
+                                   cfg.sliding_window, cfg.attention_chunk)
+    caches = []
+    for lp, (window, chunk) in zip(model.layers, layer_kinds(cfg)):
+        h = rms_norm(x, lp.ln1, cfg.norm_eps)
+        y, cache = tfm.attn_prefill(lp.attn, h, positions, cfg, capacity,
+                                    window=window, chunk=chunk)
+        x = x + y
+        h = rms_norm(x, lp.ln2, cfg.norm_eps)
+        y, _ = moe_apply(lp.moe, h, cfg)
+        x = x + y
+        caches.append(cache)
+    return tfm.unembed(model, x[:, -1:, :], cfg), caches
+
+
+def decode_step(model: MoEModel, token, pos: int, caches, cfg: ModelConfig):
+    """token: [B, 1] int32 at position ``pos`` (a host int); caches: one
+    per layer, updated in place. -> (logits [B, 1, V], caches)."""
+    x = tfm.embed_tokens(model, token, cfg)
+    new_caches = []
+    for lp, cache, (window, chunk) in zip(model.layers, caches,
+                                          layer_kinds(cfg)):
+        h = rms_norm(x, lp.ln1, cfg.norm_eps)
+        y, cache = tfm.attn_apply_decode(lp.attn, h, cache, pos, cfg,
+                                         window=window, chunk=chunk)
+        x = x + y
+        h = rms_norm(x, lp.ln2, cfg.norm_eps)
+        y, _ = moe_apply(lp.moe, h, cfg)
+        x = x + y
+        new_caches.append(cache)
+    return tfm.unembed(model, x, cfg), new_caches
+
+
+init_decode_caches = tfm.init_decode_caches

@@ -4,8 +4,10 @@
 A service's inference = [embed] + [layer]*L + [head]. The layer segment is
 ONE callable reused for every layer (the layer's module is bound per
 segment), so all L dispatches share a KernelID, as in the paper's Fig 5:
-a dense decoder layer (also the VLM's), or a mamba2 SSD mixer layer for
-the SSM family. The hybrid (recurrentgemma) has one ``rec`` and one
+a dense decoder layer (also the VLM's), an MoE layer (its window and
+chunk chosen by the layer's index: llama4's every 4th layer is full
+attention; its aux loss is dropped), or a mamba2 SSD mixer layer for the
+SSM family. The hybrid (recurrentgemma) has one ``rec`` and one
 ``attn`` segment kind instead of ``layer``, in its block pattern's order.
 The encoder-decoder (seamless-m4t) runs ``encode`` (the token embedding
 and the whole encoder; its state is the tuple (encoder output, decoder
@@ -29,9 +31,9 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch.config import ENCDEC, HYBRID, SSM, VLM, ModelConfig
+from repro_torch.config import ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.core.client import Segment
-from repro_torch.models import api, encdec, mamba2, rglru, vlm
+from repro_torch.models import api, encdec, mamba2, moe, rglru, vlm
 from repro_torch.models import transformer as tfm
 
 
@@ -58,10 +60,21 @@ def _dec_layer(lp: encdec.DecoderLayer, state, cfg: ModelConfig):
                                       cfg)
 
 
-def layer_fn(cfg: ModelConfig) -> Callable:
-    """The forward pass of one layer of a dense or SSM model, as
-    ``fn(layer_module, x, cfg)``."""
-    return mamba2.layer_apply if cfg.family == SSM else _dense_layer
+def _moe_layer(lp: moe.MoELayer, x, cfg: ModelConfig, *, window, chunk):
+    y, _aux = moe.layer_apply(lp, x, tfm.positions_for(x), cfg,
+                              window=window, chunk=chunk)
+    return y
+
+
+def layer_fn(cfg: ModelConfig, index: int) -> Callable:
+    """The forward pass of layer ``index`` of a dense, MoE or SSM model,
+    as ``fn(layer_module, x, cfg)``."""
+    if cfg.family == SSM:
+        return mamba2.layer_apply
+    if cfg.family == MOE:
+        window, chunk = moe.layer_kinds(cfg)[index]
+        return partial(_moe_layer, window=window, chunk=chunk)
+    return _dense_layer
 
 
 def _sleep_work(seconds: float) -> Optional[Callable]:
@@ -82,8 +95,8 @@ class SegmentedService:
     """
 
     def __init__(self, cfg: ModelConfig,
-                 model: Union[tfm.Transformer, mamba2.Mamba2, rglru.Hybrid,
-                              encdec.EncDec],
+                 model: Union[tfm.Transformer, moe.MoEModel, mamba2.Mamba2,
+                              rglru.Hybrid, encdec.EncDec],
                  batch: int, seq: int, host_gap: float = 0.0,
                  tail_gap: float = 0.0):
         self.cfg = cfg
@@ -131,10 +144,10 @@ class SegmentedService:
         cfg = self.cfg
         embed, head = self._ends()
         segs = [embed]
-        fn = layer_fn(cfg)
-        for lp in self.model.layers:
+        for i, lp in enumerate(self.model.layers):
             segs.append(Segment(
-                f"{cfg.name}/layer", partial(self._run_block, fn, lp, cfg),
+                f"{cfg.name}/layer",
+                partial(self._run_block, layer_fn(cfg, i), lp, cfg),
                 host_work=_sleep_work(self.host_gap)))
         self.segments = segs + [head]
 

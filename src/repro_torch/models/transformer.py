@@ -1,8 +1,9 @@
 """Dense decoder-only transformer LM (GQA / MQA / qk_norm / partial rotary /
 sliding-window / chunked attention): ``repro.models.transformer`` as
 PyTorch modules, with full-sequence forward, prefill and one-token decode.
-Also provides the attention sublayer the hybrid and the encoder-decoder
-use, and the decoder that the VLM runs over its patches and tokens.
+Also provides the attention sublayer the hybrid, the encoder-decoder and
+the MoE family use (MLA for deepseek-v2), and the decoder that the VLM
+runs over its patches and tokens.
 
 Parameters keep the JAX shapes and names (``wq`` [D, H, Dh], ``wo``
 [H, Dh, D], ...), and the state-dict key of a parameter is its JAX tree
@@ -39,10 +40,32 @@ class Attention(nn.Module):
             self.k_norm = make(prefix + "k_norm", (Dh,), "zeros")
 
 
-def attn_build(make: Maker, cfg: ModelConfig, prefix: str = "") -> Attention:
+class MLAttention(nn.Module):
+    """MLA (deepseek-v2): wq [D, H, Dh + Dr] (or [rq, H, Dh + Dr] after
+    w_dq [D, rq] and q_norm_lora [rq] when ``q_lora_rank``), w_dkv
+    [D, r + Dr], kv_norm [r], w_uk [H, Dh, r], w_uv [H, r, dv], wo
+    [H, dv, D] (the JAX shapes)."""
+
+    def __init__(self, make: Maker, cfg: ModelConfig, prefix: str = ""):
+        super().__init__()
+        D, H, Dh = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+        r, Dr, dv = (cfg.kv_lora_rank, cfg.rope_head_dim,
+                     cfg.resolved_v_head_dim)
+        rq = cfg.q_lora_rank
+        self.wq = make(prefix + "wq", (rq or D, H, Dh + Dr))
+        self.w_dkv = make(prefix + "w_dkv", (D, r + Dr))
+        self.kv_norm = make(prefix + "kv_norm", (r,), "zeros")
+        self.w_uk = make(prefix + "w_uk", (H, Dh, r))
+        self.w_uv = make(prefix + "w_uv", (H, r, dv))
+        self.wo = make(prefix + "wo", (H, dv, D))
+        if rq:
+            self.w_dq = make(prefix + "w_dq", (D, rq))
+            self.q_norm_lora = make(prefix + "q_norm_lora", (rq,), "zeros")
+
+
+def attn_build(make: Maker, cfg: ModelConfig, prefix: str = ""):
     if cfg.use_mla:
-        raise NotImplementedError("MLA attention (deepseek-v2) comes with "
-                                  "the MoE/MLA slice")
+        return MLAttention(make, cfg, prefix)
     return Attention(make, cfg, prefix)
 
 
@@ -77,7 +100,10 @@ def attn_apply_full(p: Attention, h, positions, cfg: ModelConfig, *,
     false), or cross-attention with ``kv=(k, v, kpos)``: then q alone is
     projected and q-normed, not roped, and k [B, Sk, Kh, Dh] and v are
     used as given. With ``return_kv`` also its k and v (for the decode
-    cache)."""
+    cache). MLA attends causally with no window or chunk, and returns its
+    latent and rope key (c, kr) for the cache."""
+    if cfg.use_mla:
+        return _mla_apply_full(p, h, positions, cfg, return_kv=return_kv)
     if kv is None:
         q, k, v = _qkv(p, h, positions, cfg)
         kpos = positions
@@ -99,6 +125,8 @@ def attn_apply_decode(p: Attention, h, cache: attn.KVCache, pos: int,
     """One-token self-attention. h: [B, 1, D]; ``pos`` is the token's
     position as a host int. Returns (y, cache), the cache updated in
     place."""
+    if cfg.use_mla:
+        return _mla_apply_decode(p, h, cache, pos, cfg)
     positions = torch.arange(pos, pos + 1, dtype=torch.int32,
                              device=h.device)
     q, k, v = _qkv(p, h, positions, cfg)
@@ -111,11 +139,57 @@ def attn_prefill(p: Attention, h, positions, cfg: ModelConfig,
                  capacity: int, *, window=None, chunk=None):
     """Full-seq attention that also builds the decode cache (ring
     layout)."""
+    if cfg.use_mla:
+        y, (c, kr) = _mla_apply_full(p, h, positions, cfg, return_kv=True)
+        zc = attn.init_mla_cache(h.shape[0], capacity, cfg.kv_lora_rank,
+                                 cfg.rope_head_dim, h.dtype, h.device)
+        return y, attn.cache_prefill(zc, c, kr)
     y, (k, v) = attn_apply_full(p, h, positions, cfg, window=window,
                                 chunk=chunk, return_kv=True)
     zero = attn.init_kv_cache(h.shape[0], capacity, cfg.num_kv_heads,
                               cfg.resolved_head_dim, h.dtype, h.device)
     return y, attn.cache_prefill(zero, k, v)
+
+
+# ---------------------------------------------------------------------------
+# MLA sublayer (deepseek-v2)
+# ---------------------------------------------------------------------------
+def _mla_project(p: MLAttention, h, positions, cfg: ModelConfig):
+    """q_nope [B, S, H, Dh], q_rope [B, S, H, Dr] (roped), the normed
+    latent c [B, S, r] and the roped shared key kr [B, S, Dr]."""
+    Dh, r = cfg.resolved_head_dim, cfg.kv_lora_rank
+    hq = h
+    if cfg.q_lora_rank:
+        hq = rms_norm(h @ p.w_dq, p.q_norm_lora, cfg.norm_eps)
+    qall = _project(hq, p.wq)
+    q_nope, q_rope = qall[..., :Dh], qall[..., Dh:]
+    q_rope = apply_rope(q_rope, positions, 1.0, cfg.rope_theta)
+    ckr = h @ p.w_dkv
+    c = rms_norm(ckr[..., :r], p.kv_norm, cfg.norm_eps)
+    kr = apply_rope(ckr[..., None, r:], positions, 1.0,
+                    cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c, kr
+
+
+def _mla_apply_full(p: MLAttention, h, positions, cfg: ModelConfig,
+                    return_kv: bool = False):
+    q_nope, q_rope, c, kr = _mla_project(p, h, positions, cfg)
+    out = attn.mla_attend_full(q_nope, q_rope, c, kr, p.w_uk, p.w_uv,
+                               positions, positions, causal=True)
+    y = _out_proj(p, out)
+    if return_kv:
+        return y, (c, kr)
+    return y
+
+
+def _mla_apply_decode(p: MLAttention, h, cache: attn.MLACache, pos: int,
+                      cfg: ModelConfig):
+    positions = torch.arange(pos, pos + 1, dtype=torch.int32,
+                             device=h.device)
+    q_nope, q_rope, c, kr = _mla_project(p, h, positions, cfg)
+    cache = attn.mla_cache_write(cache, c, kr, pos)
+    out = attn.mla_decode_attend(q_nope, q_rope, cache, p.w_uk, p.w_uv, pos)
+    return _out_proj(p, out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -270,13 +344,16 @@ def decode_step(model: Transformer, token, pos: int, caches,
 def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
                        device="cuda"):
     """Empty caches, one per layer, sized for decoding at seq_len (the
-    JAX package stacks them over layers)."""
-    if cfg.use_mla:
-        raise NotImplementedError("MLA caches (deepseek-v2) come with the "
-                                  "MoE/MLA slice")
+    JAX package stacks them over layers). Every layer's ring has the one
+    capacity ``cache_capacity(seq_len, window, chunk)``, the MoE family's
+    full-attention layers too, as in the JAX package."""
     capacity = attn.cache_capacity(seq_len, cfg.sliding_window,
                                    cfg.attention_chunk)
+    dt = torch_dtype(cfg.dtype)
+    if cfg.use_mla:
+        return [attn.init_mla_cache(batch, capacity, cfg.kv_lora_rank,
+                                    cfg.rope_head_dim, dt, device)
+                for _ in range(cfg.num_layers)]
     return [attn.init_kv_cache(batch, capacity, cfg.num_kv_heads,
-                               cfg.resolved_head_dim, torch_dtype(cfg.dtype),
-                               device)
+                               cfg.resolved_head_dim, dt, device)
             for _ in range(cfg.num_layers)]

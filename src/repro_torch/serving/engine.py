@@ -38,9 +38,9 @@ logger = logging.getLogger(__name__)
 
 
 class InferenceService:
-    """One hosted model (a dense decoder, the mamba2 SSM or the
-    recurrentgemma hybrid) + its priority + its profile state. The weights are random, drawn on
-    ``device`` from ``seed``."""
+    """One hosted model (of any family: dense, MoE, SSM, hybrid,
+    encoder-decoder, VLM) + its priority + its profile state. The weights
+    are random, drawn on ``device`` from ``seed``."""
 
     def __init__(self, cfg: ModelConfig, priority: int, batch: int = 1,
                  seq: int = 32, host_gap: float = 0.0, tail_gap: float = 0.0,

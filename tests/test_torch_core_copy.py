@@ -24,7 +24,8 @@ VERBATIM = [
     "serving/workers.py", "configs/h2o_danube_3_4b.py",
     "configs/seamless_m4t_medium.py", "configs/llava_next_mistral_7b.py",
     "data/pipeline.py", "sim/__init__.py", "sim/analytics.py",
-    "sim/fleet.py", "sim/workload.py",
+    "sim/fleet.py", "sim/workload.py", "configs/llama4_scout_17b_a16e.py",
+    "configs/deepseek_v2_236b.py", "configs/__init__.py",
 ]
 
 #: the one function of a copied module that the port repairs

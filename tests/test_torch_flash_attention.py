@@ -20,6 +20,8 @@ The parity tests need JAX and skip without it; the kernel tests need a
 CUDA card and ``nvcc`` and skip without them. On a machine with a card:
 ``python -m pytest tests/test_torch_flash_attention.py -m cuda``.
 """
+import threading
+
 import numpy as np
 import pytest
 
@@ -704,4 +706,43 @@ def test_backward_kernel_is_bit_identical_on_card(case, cuda):
     second = flash_attention_bwd_kernel(q, k, v, dout, **kw)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd", [False, True], ids=["forward", "backward"])
+def test_bf16_kernels_launch_from_a_thread_without_a_context(bwd, cuda):
+    """The bf16 instances encode their TMA maps with a driver call, which
+    needs a context current on the calling thread. A thread that has made
+    no CUDA runtime call has none: autograd's device thread, when
+    PyTorch's allocator serves every tensor from its cache (llama4's
+    first backward in a process met this). Such a thread's call must give
+    the main thread's bits."""
+    B, H, Kh, S, D = 2, 40, 8, 256, 128
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device=cuda)
+               .bfloat16().transpose(1, 2) for n in (H, Kh, Kh))
+    dout = torch.randn(B, H, S, D, generator=g, device=cuda).bfloat16()
+
+    def call():
+        if bwd:
+            return flash_attention_bwd_kernel(q, k, v, dout, chunk=128)
+        return (flash_attention_kernel(q, k, v, chunk=128),)
+    call()                 # libraries built, outputs back in the cache
+    torch.cuda.synchronize()
+    out = []
+
+    def run():
+        try:
+            out.append(call())
+        except RuntimeError as e:
+            out.append(e)
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and len(out) == 1
+    assert not isinstance(out[0], RuntimeError), out[0]
+    want = call()
+    torch.cuda.synchronize()
+    for a, b in zip(out[0], want):
         assert torch.equal(a, b)

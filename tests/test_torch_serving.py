@@ -277,6 +277,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import repro_torch, repro_torch.serving.engine, "
         "repro_torch.launch.serve, repro_torch.bridge, "
         "repro_torch.models.rglru, repro_torch.models.mamba2, "
+        "repro_torch.models.moe, "
+        "repro_torch.configs.llama4_scout_17b_a16e, "
+        "repro_torch.configs.deepseek_v2_236b, "
         "repro_torch.configs.mamba2_2_7b, repro_torch.configs.granite_20b, "
         "repro_torch.models.encdec, repro_torch.models.vlm, "
         "repro_torch.configs.seamless_m4t_medium, "

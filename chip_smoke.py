@@ -78,17 +78,18 @@ Phases, each of which exits non-zero on failure:
    host clock, each ending in a synchronising read of its loss; (b)
    full-width, full-depth qwen3-4b
    (remat on): 4 steps of the synthetic pipeline through
-   ``launch.train.train`` at B2 S2048 (B1 if the reckoned peak does not
-   fit), finite losses and grad norms, parameters moved (how many
-   tensors, and the norm gains, which start at zero), exact flash
-   launches, time per step, tokens/s and peak memory; (d) one
-   full-width llama4-scout-17b-a16e layer of each kind (chunked, full)
-   at B2 S2048: the gradients of a fixed scalar of its output plus its
-   aux loss with respect to every parameter and x, through the kernels
-   (flash's launches exact), against the plain versions given the same
-   expert choices (``routed_as``), each within 5e-2 of its norm; one
-   full-width deepseek-v2-236b layer (MLA and MoE, no kernel): every
-   gradient finite and non-zero;
+   ``launch.train.train`` (no mesh: the un-meshed step, which phase 11
+   (e) holds the meshed one to) at B2 S2048 (B1
+   if the reckoned peak does not fit), finite losses and grad norms,
+   parameters moved (how many tensors, and the norm gains, which start
+   at zero), exact flash launches, time per step, tokens/s and peak
+   memory; (d) one full-width llama4-scout-17b-a16e layer of each kind
+   (chunked, full) at B2 S2048: the gradients of a fixed scalar of its
+   output plus its aux loss with respect to every parameter and x,
+   through the kernels (flash's launches exact), against the plain
+   versions given the same expert choices (``routed_as``), each within
+   5e-2 of its norm; one full-width deepseek-v2-236b layer (MLA and MoE,
+   no kernel): every gradient finite and non-zero;
 5. model: full-width, full-depth qwen3-4b, stablelm-1.6b,
    recurrentgemma-9b, granite-20b, mamba2-2.7b, h2o-danube-3-4b,
    seamless-m4t-medium and llava-next-mistral-7b (random bf16 weights
@@ -162,7 +163,33 @@ Phases, each of which exits non-zero on failure:
    rows the poller consumes (tokens equal to an uninterrupted run's) and
    cancelled mid-flight (its device memory comes back); a RUNNING row
    recovered to DONE by ``serve_pair(..., resume=True)``; the ``status``
-   verb, run as a subprocess, lists every job DONE or CANCELLED.
+   verb, run as a subprocess, lists every job DONE or CANCELLED;
+11. mesh: the ``make_*_step`` functions under the (1, 1) ("data",
+   "model") host mesh (``make_host_mesh()``: a world-1 NCCL group,
+   destroyed at the phase's end), parameters, optimizer state, batches
+   and caches ``DTensor``s:
+   (b) full-width qwen3-4b cut to 2 layers, B2 S2048: the meshed loss and
+   every gradient (``steps.loss_and_grads``) against the un-meshed ones,
+   and one meshed ``make_train_step`` step against the un-meshed step
+   (loss, grad norm, every parameter after the update), bit for bit, or,
+   where one is not, each within MESH_TOL of its norm with the tensors
+   named (a gradient may differ only where two un-meshed runs differ:
+   the embedding lookup's backward accumulates in the threads' order);
+   flash's forward (twice a layer under remat) and backward
+   launches exact; (c) full-width qwen3-4b, meshed ``make_prefill_step``
+   (B2, prompt 1024) and 16 meshed ``make_serve_step``s against phase 6's
+   ``generate`` run again on the same weights and tokens, logits bit for
+   bit at every step, decode launches exactly 16 x 36 and flash's 36, the
+   decode step's host time both ways; (d) full-width
+   llama4-scout-17b-a16e-L4, meshed prefill of phase 6's 8320-token
+   prompt: the (1, 1) mesh takes the MoE block's single-device branch
+   (ep = 1: asserted), logits bit for bit with the un-meshed prefill's;
+   (e) the meshed full-depth qwen3-4b ``make_train_step`` on phase 4
+   (b)'s weights, shape and batches, timed as phase 4 (b)'s un-meshed
+   ``train()`` is: its losses bit for bit with phase 4 (b)'s (within
+   MESH_TOL where (b) found the un-meshed gradients not repeatable),
+   flash's launches exact, time per step, tokens/s and peak memory
+   beside phase 4 (b)'s, in this process.
 
 Every path (each train step check and the train run, generate, each
 serving, load and ops run) is driven with all launch counters set to 0
@@ -1102,6 +1129,335 @@ def train_full(torch, K):
 
 
 # ----------------------------------------------------------- model phases
+# --------------------------------------------------------------- mesh phase
+#: a gradient that is not bit for bit the un-meshed one is held within
+#: this share of its norm (and named)
+MESH_TOL = 1e-3
+
+
+def _whole(x):
+    """A DTensor's whole tensor; a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _compare(label, want, got, tol=MESH_TOL):
+    """name -> tensor maps: bit for bit, or each within ``tol`` of its
+    norm. Returns (all bitwise, the names that are not, the worst
+    relative difference)."""
+    differ, worst = [], 0.0
+    for n, w in want.items():
+        g = _whole(got[n])
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label} {n}: {g.shape} {g.dtype} vs "
+                                 f"{w.shape} {w.dtype}")
+        if not bool((g == w).all()):
+            differ.append(n)
+            norm = float(w.float().norm())
+            rel = float((g.float() - w.float()).norm()) / (norm or 1.0)
+            worst = max(worst, rel)
+    if worst > tol:
+        raise AssertionError(f"{label}: {len(differ)} tensors differ, the "
+                             f"worst by {worst} of its norm: {differ[:8]}")
+    return not differ, differ, worst
+
+
+def mesh_train_check(torch, K, mesh, cfg, batch, seq, dev="cuda"):
+    """Phase 11 (b): the meshed loss and gradients, and one meshed train
+    step, against the un-meshed ones on the same weights and batch."""
+    from repro_torch.config import InputShape
+    from repro_torch.kernels.flash_attention.kernel import BWD_PASSES
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train_inputs
+    from repro_torch.data.pipeline import SyntheticTextPipeline
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.sharding.specs import unshard_model
+    tb = next(SyntheticTextPipeline(cfg.vocab_size, batch, seq, seed=0))
+    inputs, labels = train_inputs(cfg, tb.tokens, tb.labels, batch, seq, dev)
+    model = api.build_params(cfg, seed=0, device=dev).requires_grad_(True)
+    loss0, grads0 = steps.loss_and_grads(cfg, None, model, inputs, labels)
+    # a gradient the un-meshed path does not repeat bit for bit (the
+    # embedding lookup's backward accumulates repeated tokens' rows with
+    # index_put_, in an order the device's threads choose) cannot be held
+    # bit for bit to it either
+    _, again = steps.loss_and_grads(cfg, None, model, inputs, labels)
+    unsteady = sorted(n for n in grads0 if not torch.equal(grads0[n],
+                                                           again[n]))
+    del again
+    reset_launches(K)
+    loss1, grads1 = steps.loss_and_grads(cfg, mesh, model, inputs, labels)
+    torch.cuda.synchronize()
+    launches = read_launches(K)
+    L = cfg.num_layers
+    need = {"flash_attention": (2 if cfg.remat else 1) * L,
+            "flash_attention_bwd": BWD_PASSES[torch.bfloat16] * L}
+    bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"mesh train: launches (got, need) {bad}")
+    placements = sorted({str(tuple(g.placements)) for g in grads1.values()})
+    g_bits, g_differ, g_worst = _compare("mesh gradients", grads0, grads1)
+    if set(g_differ) - set(unsteady):
+        raise AssertionError(
+            f"mesh gradients: {sorted(set(g_differ) - set(unsteady))} "
+            f"differ from the un-meshed ones, which repeat bit for bit")
+    loss_bits = bool(torch.equal(loss0, _whole(loss1)))
+    del grads0, grads1
+    unshard_model(model)
+    del model
+    free(torch)
+    shape = InputShape("t", seq, batch, "train")
+    after, metrics = {}, {}
+    for key, m in (("unmeshed", None), ("meshed", mesh)):
+        model = api.build_params(cfg, seed=0, device=dev).requires_grad_(True)
+        fn, _ = steps.make_train_step(cfg, m, shape, grad_accum=1)
+        model, opt, met = fn(model, adamw_init(dict(model.named_parameters())),
+                             inputs, labels)
+        metrics[key] = met
+        after[key] = dict(unshard_model(model).named_parameters())
+        del opt, model
+        free(torch)
+    p_bits, p_differ, p_worst = _compare("mesh step parameters",
+                                         after["unmeshed"], after["meshed"])
+    step_bits = all(bool(torch.equal(metrics["unmeshed"][k],
+                                     metrics["meshed"][k]))
+                    for k in ("loss", "grad_norm", "lr"))
+    rec = {"model": f"{cfg.name} ({L} layers)", "batch": batch, "seq": seq,
+           "loss_unmeshed": float(loss0), "loss_meshed": float(_whole(loss1)),
+           "loss_bitwise": loss_bits, "grads_bitwise": g_bits,
+           "unmeshed_not_repeatable": unsteady,
+           "grads_differ": g_differ, "grads_worst_rel": g_worst,
+           "grad_placements": placements, "launches": launches,
+           "step_metrics_bitwise": step_bits, "step_params_bitwise": p_bits,
+           "step_params_differ": p_differ, "step_params_worst_rel": p_worst,
+           "grad_norm": float(metrics["meshed"]["grad_norm"])}
+    if not (loss_bits or abs(float(loss0) - float(_whole(loss1)))
+            <= MESH_TOL * max(1.0, abs(float(loss0)))):
+        raise AssertionError(f"mesh train: loss {rec['loss_meshed']} vs "
+                             f"{rec['loss_unmeshed']}")
+    del after
+    return rec
+
+
+def mesh_generate_check(torch, K, mesh, cfg, batch, prompt, dev="cuda"):
+    """Phase 11 (c): meshed prefill + GEN_STEPS meshed serve steps against
+    phase 6's un-meshed ``generate`` on the same weights and tokens."""
+    from repro_torch.config import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.sharding.specs import unshard_model
+    model = api.build_params(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                           dtype=torch.int32, device=dev, generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (GEN_STEPS, batch, 1),
+                         dtype=torch.int32, device=dev, generator=g)
+    want, want_ms, caches = generate(torch, model, tokens, prompt, toks, cfg)
+    del caches
+    pf, _ = steps.make_prefill_step(
+        cfg, mesh, InputShape("p", prompt, batch, "prefill"),
+        extra_capacity=GEN_STEPS)
+    sv, _ = steps.make_serve_step(
+        cfg, mesh, InputShape("d", prompt + GEN_STEPS, batch, "decode"))
+    reset_launches(K)
+    logits, caches = pf(model, tokens)
+    got, ms = [logits], []
+    for i in range(GEN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = sv(model, toks[i], prompt + i, caches)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        got.append(logits)
+    launches = read_launches(K)
+    L = cfg.num_layers
+    need = {"flash_attention": L, "decode_attention": GEN_STEPS * L}
+    bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"mesh generate: launches (got, need) {bad}")
+    placements = str(tuple(got[0].placements))
+    bits = [bool(torch.equal(w, _whole(x))) for w, x in zip(want, got)]
+    if not all(bits):
+        worst = max(float((w.float() - _whole(x).float()).abs().max())
+                    for w, x in zip(want, got))
+        raise AssertionError(f"mesh generate: steps bitwise {bits}, worst "
+                             f"|diff| {worst}")
+    rec = {"model": cfg.name, "batch": batch, "prompt": prompt,
+           "steps": GEN_STEPS, "logits_bitwise_steps": sum(bits),
+           "logits_placements": placements, "launches": launches,
+           "decode_step_ms_median_meshed": statistics.median(ms),
+           "decode_step_ms_median_unmeshed": statistics.median(want_ms),
+           "decode_step_ms_meshed": ms, "decode_step_ms_unmeshed": want_ms}
+    del caches, got, want
+    unshard_model(model)
+    del model
+    return rec
+
+
+def mesh_moe_prefill_check(torch, K, mesh, cfg, batch, prompt,
+                           dev="cuda"):
+    """Phase 11 (d): meshed prefill of an MoE model on the (1, 1) mesh,
+    which takes the block's single-device branch (ep = 1), against the
+    un-meshed prefill."""
+    from repro_torch.config import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.models import api, moe
+    from repro_torch.sharding.specs import unshard_model
+    model = api.build_params(cfg, seed=0, device=dev)
+    rescale_qk(torch, model)                 # as phase 6's llama4 run
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                           dtype=torch.int32, device=dev, generator=g)
+    with torch.inference_mode():
+        want, caches = api.prefill(model, tokens, cfg)
+    del caches
+    free(torch)
+    calls = {"single": 0}
+    real = moe._replicated_block
+
+    def single(*a, **k):
+        calls["single"] += 1
+        return real(*a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("the (1, 1) mesh (ep = 1) must take the "
+                             "single-device branch")
+    pf, _ = steps.make_prefill_step(cfg, mesh,
+                                    InputShape("p", prompt, batch, "prefill"))
+    reset_launches(K)
+    with mock.patch.object(moe, "_replicated_block", single), \
+            mock.patch.object(moe, "_expert_parallel_block", refuse):
+        got, caches = pf(model, tokens)
+    launches = read_launches(K)
+    del caches
+    L = cfg.num_layers
+    if calls["single"] != L:
+        raise AssertionError(f"mesh moe: {calls['single']} single-device "
+                             f"blocks for {L} layers")
+    if launches["flash_attention"] != L:
+        raise AssertionError(f"mesh moe: flash launches "
+                             f"{launches['flash_attention']}, need {L}")
+    bits = bool(torch.equal(want, _whole(got)))
+    if not bits:
+        raise AssertionError(
+            "mesh moe: prefill logits differ by "
+            f"{float((want.float() - _whole(got).float()).abs().max())}")
+    rec = {"model": cfg.name, "batch": batch, "prompt": prompt,
+           "single_device_blocks": calls["single"], "logits_bitwise": bits,
+           "launches": launches}
+    unshard_model(model)
+    del model, want, got
+    return rec
+
+
+def mesh_train_cost(torch, K, mesh, cfg, batch, seq, steps_n, unmeshed,
+                    repeatable, dev="cuda"):
+    """Phase 11 (e): the meshed full-depth train step on phase 4 (b)'s
+    weights (seed 0) and batches (the synthetic pipeline, seed 0), each
+    step ended by a synchronise as ``train()``'s ``on_step`` ends it
+    there, beside that un-meshed run's numbers (``unmeshed``). The losses
+    must be phase 4 (b)'s bit for bit, or within MESH_TOL where (b)
+    found two un-meshed runs' gradients to differ (``repeatable``
+    false)."""
+    from repro_torch.config import InputShape
+    from repro_torch.data.pipeline import SyntheticTextPipeline
+    from repro_torch.kernels.flash_attention.kernel import BWD_PASSES
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train_inputs
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.sharding.specs import unshard_model
+    model = api.build_params(cfg, seed=0, device=dev).requires_grad_(True)
+    opt = adamw_init(dict(model.named_parameters()))
+    fn, _ = steps.make_train_step(cfg, mesh,
+                                  InputShape("t", seq, batch, "train"),
+                                  grad_accum=1)
+    pipe = SyntheticTextPipeline(cfg.vocab_size, batch, seq, seed=0).start()
+    free(torch)
+    reset_launches(K)
+    torch.cuda.reset_peak_memory_stats()
+    stamps, losses = [], []
+    t0 = time.perf_counter()
+    try:
+        for _ in range(steps_n):
+            tb = next(pipe)
+            inputs, labels = train_inputs(cfg, tb.tokens, tb.labels, batch,
+                                          seq, dev)
+            model, opt, m = fn(model, opt, inputs, labels)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+    finally:
+        pipe.stop()
+    launches = read_launches(K)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    med = statistics.median(step_s[1:])
+    rec = {"model": cfg.name, "batch": batch, "seq": seq, "steps": steps_n,
+           "meshed": {"step_s": step_s, "step_s_median_after_first": med,
+                      "tokens_per_s": batch * seq / med,
+                      "peak_mem_bytes": peak, "losses": losses,
+                      "launches": launches},
+           "unmeshed": {k: unmeshed[k] for k in
+                        ("step_s", "step_s_median_after_first",
+                         "tokens_per_s", "peak_mem_bytes", "losses")}}
+    rec["meshed_over_unmeshed_step"] = (
+        med / unmeshed["step_s_median_after_first"])
+    rec["losses_bitwise"] = losses == unmeshed["losses"]
+    unshard_model(model)
+    del model, opt
+    L = cfg.num_layers
+    need = {"flash_attention": 2 * L * steps_n,
+            "flash_attention_bwd": BWD_PASSES[torch.bfloat16] * L * steps_n}
+    bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"mesh train cost: launches (got, need) {bad}")
+    near = all(abs(a - b) <= MESH_TOL * max(1.0, abs(b))
+               for a, b in zip(losses, unmeshed["losses"]))
+    if not rec["losses_bitwise"] and (repeatable or not near):
+        raise AssertionError(f"mesh train cost: meshed losses {losses}, "
+                             f"un-meshed {unmeshed['losses']}")
+    return rec
+
+
+def mesh_phase(torch, K, train_qwen, smi):
+    """Phase 11: (a) the host mesh, then (b)-(e); the group is destroyed at
+    the end whatever happens."""
+    import torch.distributed as dist
+
+    from repro_torch.config import get_config
+    from repro_torch.launch.mesh import destroy_host_group, make_host_mesh
+    if dist.is_initialized():
+        raise AssertionError("a process group outlived its phase")
+    mesh = make_host_mesh()
+    out = {"a": {"mesh": str(mesh), "backend": dist.get_backend(),
+                 "world": dist.get_world_size(), "card": smi}}
+    log("  (a) " + json.dumps(out["a"]))
+    try:
+        out["b"] = mesh_train_check(torch, K, mesh,
+                                    get_config(HI).replace(num_layers=2),
+                                    TRAIN_B, TRAIN_S)
+        log("  (b) " + json.dumps(dict(out["b"], card=smi)))
+        free(torch)
+        (_, hi_batch, hi_prompt) = GENERATE[1]
+        out["c"] = mesh_generate_check(torch, K, mesh, get_config(HI),
+                                       hi_batch, hi_prompt)
+        log("  (c) " + json.dumps(dict(out["c"], card=smi)))
+        free(torch)
+        (name, batch, prompt, _) = MOE_GENERATE[0]
+        out["d"] = mesh_moe_prefill_check(torch, K, mesh, get_config(name),
+                                          batch, prompt)
+        log("  (d) " + json.dumps(dict(out["d"], card=smi)))
+        free(torch)
+        out["e"] = mesh_train_cost(
+            torch, K, mesh, get_config(HI), train_qwen["batch"], TRAIN_S,
+            TRAIN_STEPS, train_qwen, not out["b"]["unmeshed_not_repeatable"])
+        log("  (e) " + json.dumps(dict(out["e"], card=smi)))
+        free(torch)
+    finally:
+        destroy_host_group()
+    return out
+
+
 def launchers(K) -> dict:
     """The kernels' wrappers as imported, whose ``launches`` count kernel
     launches (a patched module attribute does not hide them)."""
@@ -2673,6 +3029,13 @@ def main() -> int:
         ops_pair(torch, K, store)
     ops_verbs(torch, K, OPS_DB)
     ops_recover(torch, K, OPS_DB)
+
+    log("[mesh] the make_*_step functions under the (1, 1) host mesh: (b) "
+        f"qwen3-4b (2 layers) train B{TRAIN_B} S{TRAIN_S}, (c) qwen3-4b "
+        f"prefill + {GEN_STEPS} serve steps, (d) {LLAMA4_L4} prefill, "
+        "(e) the meshed full-depth step beside phase 4 (b)'s un-meshed "
+        "train()")
+    mesh_phase(torch, K, train_qwen, smi)
 
     pair_e = served[(HI, HYB)]["launches"]
 

@@ -2,7 +2,12 @@
 
 A CUDA tensor launches the Hopper kernel (or raises); a tensor on the CPU
 goes to the plain version, ``ref.flash_attention_ref``, which autograd
-differentiates. There is no fallback from one to the other. A CUDA call
+differentiates, and so does one on the ``meta`` device (the dry-run
+counts the plain version's shapes). There is no fallback from one to the
+other. A ``DTensor`` (a step under a mesh) runs on its local shards
+(``kernels._sharded``): batch and heads may be sharded, kv heads
+replicated where Kh does not divide the model axis; a sharded sequence
+or head dim raises. A CUDA call
 goes through ``FlashAttention``, a ``torch.autograd.Function`` whose
 forward is the kernel and whose backward is the backward kernel
 (``csrc/flash_attention_bwd.cu``); where autograd does not record
@@ -28,6 +33,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_kernel,
     flash_attention_kernel,
 )
+from repro_torch.kernels import _sharded
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _count_lock = threading.Lock()
@@ -68,7 +74,14 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal=True, window=None, chunk=None,
                     scale=None):
     """q: [B, H, Sq, D]; k/v: [B, Kh, Sk, D] -> [B, H, Sq, D]."""
-    if q.device.type == "cpu":
+    if _sharded.is_sharded(q, k, v):
+        op = "flash_attention"
+        _sharded.check(op, q, (0, 1), "q")
+        ql, kl, vl = _sharded.kv_heads_for(op, q, k, v, hdim=1)
+        return _sharded.wrap(flash_attention(
+            ql, kl, vl, causal=causal, window=window, chunk=chunk,
+            scale=scale), q)
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    chunk=chunk, scale=scale)
     return FlashAttention.apply(q, k, v, causal, window, chunk, scale)

@@ -2,7 +2,12 @@
 
 A CUDA tensor launches the Hopper kernel (or raises); a tensor on the CPU
 goes to the plain version, ``ref.rglru_scan_ref``, which autograd
-differentiates. There is no fallback from one to the other. A CUDA call
+differentiates; one on the ``meta`` device (the dry-run) gets an
+elementwise form of the same shapes and traffic.
+There is no fallback from one to the other. A ``DTensor`` (a step under a
+mesh) runs on its local shards (``kernels._sharded``): the recurrence is
+elementwise over batch and width, so either may be sharded; a sharded
+sequence dim raises. A CUDA call
 goes through ``RGLRUScan``, a ``torch.autograd.Function`` whose forward is
 the kernel and whose backward is the backward kernel
 (``csrc/rglru_scan_bwd.cu``); where autograd does not record it builds no
@@ -20,6 +25,7 @@ from repro_torch.kernels.rglru_scan.kernel import (
     rglru_scan_bwd_kernel,
     rglru_scan_kernel,
 )
+from repro_torch.kernels import _sharded
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 _count_lock = threading.Lock()
@@ -54,6 +60,25 @@ class RGLRUScan(torch.autograd.Function):
 def rglru_scan(a, b, h0=None):
     """h_t = a_t * h_{t-1} + b_t over axis 1. a/b: [B, S, W]; h0: [B, W]
     or None. Returns [B, S, W] in a's dtype."""
+    if _sharded.is_sharded(a, b, h0):
+        op = "rglru_scan"
+        _sharded.check(op, a, (0, 2), "a")
+        _sharded.same(op, a, b, "b")
+        if h0 is not None:
+            want = [p if not (hasattr(p, "dim") and p.dim == 2)
+                    else type(p)(1) for p in a.placements]
+            if list(h0.placements) != want:
+                raise NotImplementedError(
+                    f"{op}: h0 placed {list(h0.placements)}, unlike a's "
+                    f"[B, W] placements {want}")
+            h0 = h0.to_local()
+        return _sharded.wrap(rglru_scan(a.to_local(), b.to_local(), h0), a)
+    if a.device.type == "meta":
+        # shapes only (the dry-run): one elementwise pass over a, b (and
+        # h0) writing h, the kernel's traffic, not the plain version's
+        # S-step loop
+        h = a.float() * b.float()
+        return (h if h0 is None else h + h0.float()[:, None]).to(a.dtype)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
     return RGLRUScan.apply(a, b, h0)

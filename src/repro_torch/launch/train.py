@@ -6,8 +6,14 @@ step builder's ``train_step``, on the card by default.
         --device cpu --steps 50 --batch 8 --seq 128
 
 Without ``--full`` the config runs at ``.reduced()`` scale, as in the JAX
-package. ``--ckpt`` writes ``{"params": state dict, "opt": AdamW state}``
-in the JAX package's msgpack layout and needs ``msgpack``.
+package. ``train(..., mesh=...)`` trains under a mesh that shards (more
+than one device). With no mesh, or one of a single device such as the
+JAX package's (1, 1) host mesh, the un-meshed step runs: on one device
+it gives the meshed step's bits (``chip_smoke.py`` phase 11 holds them
+so) without DTensor's eager dispatch, which made the full-depth qwen3-4b
+step 1.5-1.8x slower on an H100. ``--ckpt`` writes ``{"params": state
+dict, "opt": AdamW state}`` in the JAX package's msgpack layout and
+needs ``msgpack``.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from repro_torch.models import api
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.vlm import stub_patches
 from repro_torch.optim.adamw import adamw_init
+from repro_torch.sharding.specs import unshard, unshard_model
 
 
 def train_inputs(cfg, tokens, labels, batch: int, seq: int, device):
@@ -49,7 +56,8 @@ def train_inputs(cfg, tokens, labels, batch: int, seq: int, device):
 
 def train(arch: str, steps: int = 20, batch: int = 8, seq: int = 128,
           reduced: bool = True, seed: int = 0, log_every: int = 5,
-          ckpt_path: str = "", device="cuda", model=None, on_step=None):
+          ckpt_path: str = "", device="cuda", model=None, on_step=None,
+          mesh=None):
     """Train ``arch`` for ``steps`` steps of the synthetic pipeline's
     batches; returns the losses, as the JAX package's driver does.
 
@@ -58,12 +66,16 @@ def train(arch: str, steps: int = 20, batch: int = 8, seq: int = 128,
     the caller built and keeps (else they come from ``seed``), so it can
     compare them before and after; ``on_step(step, metrics)`` is called
     after each step with its metrics, so it can time the steps and read
-    each step's ``grad_norm`` and ``lr``."""
+    each step's ``grad_norm`` and ``lr``. Under a ``mesh`` of more than
+    one device the parameters are ``DTensor``s while the steps run;
+    ``model`` comes back with plain ones."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if mesh is not None and mesh.size() == 1:
+        mesh = None
     shape = InputShape("cli", seq, batch, "train")
-    step_fn, _ = make_train_step(cfg, shape, grad_accum=1)
+    step_fn, _ = make_train_step(cfg, mesh, shape, grad_accum=1)
 
     if model is None:
         model = api.build_params(cfg, seed, device)
@@ -89,6 +101,8 @@ def train(arch: str, steps: int = 20, batch: int = 8, seq: int = 128,
                       f"({(time.time()-t0):.1f}s)")
     finally:
         pipe.stop()
+        unshard_model(model)
+    opt = unshard(opt)
     if ckpt_path:
         from repro_torch.checkpoint import save_checkpoint
         save_checkpoint(ckpt_path, {"params": model.state_dict(),

@@ -114,12 +114,66 @@ def batch_labels(cfg: ModelConfig, batch) -> torch.Tensor:
 def loss_fn(logits, labels, aux, aux_weight: float = 0.01):
     """Masked next-token cross entropy (labels < 0 ignored) in fp32: the
     logsumexp minus the picked logit, summed over the valid labels and
-    divided by their count (at least 1), plus ``aux_weight * aux``."""
+    divided by their count (at least 1), plus ``aux_weight * aux``.
+
+    Under a mesh the logits stay vocab-sharded, as GSPMD keeps them:
+    each rank takes the logsumexp of its vocab shard and the label's
+    logit where its shard holds the label (0 elsewhere), and these are
+    combined across the mesh dims that shard the vocab (lse = M +
+    log(sum exp(lse_r - M)), M the ranks' max; the picked logits summed).
+    Only [B, S] tensors cross ranks. Over one shard the combine is exact
+    (exp(0) = 1, log(1) = 0), so a (1, 1) mesh gives the un-meshed bits."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(logits, DTensor):
+        nll, valid = _sharded_nll(logits, labels)
+    else:
+        nll, valid = _nll(logits, labels, 0, None), labels >= 0
+    return nll.sum() / torch.clamp_min(valid.sum(), 1) + aux_weight * aux
+
+
+def _nll(logits, labels, lo: int, combine):
+    """Per-token masked cross entropy of logits that hold the vocab
+    entries [lo, lo + V_local); ``combine(x, op)`` reduces a per-token
+    value across the vocab's shards (None: the whole vocab is here)."""
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
     valid = labels >= 0
-    lab = torch.where(valid, labels, 0).long()
-    picked = torch.gather(lg, -1, lab[..., None])[..., 0]
-    nll = (lse - picked) * valid.float()
-    loss = nll.sum() / torch.clamp_min(valid.sum(), 1)
-    return loss + aux_weight * aux
+    own = valid & (labels >= lo) & (labels < lo + lg.shape[-1])
+    lab = torch.where(own, labels - lo, 0).long()
+    picked = torch.where(own, torch.gather(lg, -1, lab[..., None])[..., 0],
+                         0.0)
+    if combine is not None:
+        top = combine(lse.detach(), "max")
+        lse = torch.log(combine(torch.exp(lse - top), "sum")) + top
+        picked = combine(picked, "sum")
+    return (lse - picked) * valid.float()
+
+
+def _sharded_nll(logits, labels):
+    """(nll, valid) as ``DTensor``s placed as the labels (a ``DTensor``
+    on the logits' mesh) are redistributed: the logits' placements with
+    the vocab's mesh dims replicated. The logits' gradient comes back
+    vocab-sharded; the sums crossing ranks pass it through unchanged
+    (``from_local`` of a ``Partial``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    vocab = {md for md, p in enumerate(logits.placements)
+             if p.is_shard() and p.dim % logits.ndim == last}
+    lpl = [Replicate() if md in vocab or p.is_partial() else p
+           for md, p in enumerate(logits.placements)]
+    logits = logits.redistribute(mesh, [
+        p if md in vocab else lpl[md]
+        for md, p in enumerate(logits.placements)])
+    labels = labels.redistribute(mesh, lpl)
+    _, off = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+
+    def combine(x, op):
+        pl = [Partial(op) if md in vocab else p for md, p in enumerate(lpl)]
+        return DTensor.from_local(x, mesh, pl, run_check=False).redistribute(
+            mesh, lpl).to_local()
+    nll = _nll(logits.to_local(), labels.to_local(), off[last],
+               combine if vocab else None)
+    return DTensor.from_local(nll, mesh, lpl, run_check=False), labels >= 0

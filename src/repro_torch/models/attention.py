@@ -15,10 +15,14 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.kernels._sharded import local_offset
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.models import layers
+from repro_torch.sharding import context as shctx
+from repro_torch.sharding.context import constrain, model_axis_size
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,6 +58,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"only cross-attention (causal=False, no window or "
                          f"chunk); got causal={causal}, window={window}, "
                          f"chunk={chunk}")
+    # under a mesh: batch and heads sharded, as the JAX package pins its
+    # [B, H, Qb, S] logits; kv heads that do not divide stay replicated
+    q = constrain(q, "batch", None, "model", None)
+    k = constrain(k, "batch", None, "model", None)
+    v = constrain(v, "batch", None, "model", None)
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window, chunk=chunk, scale=scale)
@@ -73,14 +82,21 @@ class KVCache(NamedTuple):
         return self.k.shape[1]
 
 
+def kv_spec(kv_heads: int):
+    """The KV cache's layout under a mesh (the JAX package's ``_kv_dims``):
+    kv heads on ``model`` when they divide it, else the sequence."""
+    if kv_heads % model_axis_size() == 0:
+        return ("batch", None, "model", None)
+    return ("batch", "model", None, None)
+
+
 def init_kv_cache(batch: int, capacity: int, kv_heads: int, head_dim: int,
                   dtype: torch.dtype, device="cuda") -> KVCache:
+    shape = (batch, capacity, kv_heads, head_dim)
     return KVCache(
-        k=torch.zeros((batch, capacity, kv_heads, head_dim), dtype=dtype,
-                      device=device),
-        v=torch.zeros((batch, capacity, kv_heads, head_dim), dtype=dtype,
-                      device=device),
-        pos=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+        k=shctx.zeros(shape, dtype, device, *kv_spec(kv_heads)),
+        v=shctx.zeros(shape, dtype, device, *kv_spec(kv_heads)),
+        pos=shctx.full((capacity,), -1, torch.int32, device, None),
     )
 
 
@@ -94,13 +110,43 @@ def cache_capacity(seq_len: int, window: Optional[int],
     return seq_len
 
 
+def put(buf, dim: int, index, vals) -> None:
+    """``buf[(:,) * dim + (index,)] = vals``, in place. A ``DTensor`` buffer
+    is written on its local shard: ``vals`` is placed as the buffer with
+    ``dim`` replicated (a python scalar as it is), and each rank writes
+    the slots its shard holds (an indexed write through a DTensor whose
+    ``dim`` is sharded would land in a gathered copy)."""
+    lead = (slice(None),) * dim
+    if not isinstance(buf, DTensor):
+        buf[lead + (index,)] = vals
+        return
+    mesh = buf.device_mesh
+    drop = isinstance(index, int)     # vals lacks ``dim``: later dims shift
+    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else
+            Shard(p.dim - 1) if drop and isinstance(p, Shard) and p.dim > dim
+            else p for p in buf.placements]
+    if isinstance(vals, torch.Tensor) and not isinstance(vals, DTensor):
+        vals = DTensor.from_local(vals, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    vl = vals.redistribute(mesh, want).to_local() \
+        if isinstance(vals, DTensor) else vals       # a python scalar
+    off, n = local_offset(buf, dim)
+    loc = buf.to_local()
+    if isinstance(index, int):
+        if off <= index < off + n:
+            loc[lead + (index - off,)] = vl
+        return
+    mine = (index >= off) & (index < off + n)
+    loc[lead + (index[mine] - off,)] = vl[lead + (mine,)]
+
+
 def cache_write(cache: KVCache, k_new, v_new, pos: int) -> KVCache:
     """Write one token (k_new/v_new: [B, 1, Kh, Dh]) at position ``pos``
     (a host int) into slot pos % C, in place."""
     slot = pos % cache.capacity
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
-    cache.pos[slot] = pos
+    put(cache.k, 1, slot, k_new[:, 0].to(cache.k.dtype))
+    put(cache.v, 1, slot, v_new[:, 0].to(cache.v.dtype))
+    put(cache.pos, 0, slot, pos)
     return cache
 
 
@@ -124,8 +170,8 @@ def cache_prefill(cache, *new, start: int = 0):
     pos = torch.arange(start, start + S, dtype=torch.int32, device=dev)
     slots = torch.remainder(pos, C).long()
     for f, n in zip(fields, new):
-        f[:, slots] = n.to(f.dtype)
-    cache.pos[slots] = pos
+        put(f, 1, slots, n.to(f.dtype))
+    put(cache.pos, 0, slots, pos)
     return cache
 
 
@@ -138,9 +184,20 @@ def decode_attend(q, cache: KVCache, pos: int, *, window=None, chunk=None,
     transposed view, so nothing is copied. Every slot masked gives
     mean(v) (the kernel's oracle) where the JAX model path gives zeros;
     ``decode_step`` never has such a row, since the token's own slot is
-    always valid."""
+    always valid.
+
+    Under a mesh q is pinned head-sharded; a cache whose kv heads do not
+    divide the model axis is pinned sequence-sharded, as the JAX package
+    pins its logits, and the kernel wrapper gathers it."""
+    k, v = cache.k, cache.v
+    msize = model_axis_size()
+    if msize > 1 and k.shape[2] % msize != 0 and \
+            cache.capacity % msize == 0:
+        k = constrain(k, "batch", "model", None, None)   # [B,C,Kh,Dh]: C
+        v = constrain(v, "batch", "model", None, None)
+    q = constrain(q, "batch", None, "model", None)
     out = decode_ops.decode_attention(
-        q[:, 0], cache.k.transpose(1, 2), cache.v.transpose(1, 2), cache.pos,
+        q[:, 0], k.transpose(1, 2), v.transpose(1, 2), cache.pos,
         pos, window=window, chunk=chunk, scale=scale)
     return out[:, None]
 
@@ -176,10 +233,11 @@ class MLACache(NamedTuple):
 def init_mla_cache(batch: int, capacity: int, r: int, rope_dim: int,
                    dtype: torch.dtype, device="cuda") -> MLACache:
     return MLACache(
-        c=torch.zeros((batch, capacity, r), dtype=dtype, device=device),
-        kr=torch.zeros((batch, capacity, rope_dim), dtype=dtype,
-                       device=device),
-        pos=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+        c=shctx.zeros((batch, capacity, r), dtype, device, "batch", "model",
+                      None),
+        kr=shctx.zeros((batch, capacity, rope_dim), dtype, device, "batch",
+                       "model", None),
+        pos=shctx.full((capacity,), -1, torch.int32, device, None),
     )
 
 
@@ -193,10 +251,12 @@ def _mla_block(qc, qr, c, k_rope, w_uv, qpos, kpos, causal, scale):
           + torch.einsum("bqhd,bsd->bhqs", qr.float(), k_rope.float())
           ) * scale
     m = _mask(qpos, kpos, causal=causal)
+    lg = constrain(lg, "batch", "model", None, None)
     lg = torch.where(m[:, None], lg, NEG_INF)
     mx = torch.clamp_min(lg.amax(dim=-1, keepdim=True), -1e30)
     p = torch.exp(lg - mx)
     p = (p / (p.sum(dim=-1, keepdim=True) + 1e-30)).to(c.dtype)
+    p = constrain(p, "batch", "model", None, None)
     ctx = torch.einsum("bhqs,bsr->bqhr", p, c)
     return torch.einsum("bqhr,hrv->bqhv", ctx, w_uv)
 
@@ -233,9 +293,9 @@ def mla_cache_write(cache: MLACache, c_new, kr_new, pos: int) -> MLACache:
     """Write one token (c_new [B, 1, r], kr_new [B, 1, Dr]) at position
     ``pos`` (a host int) into slot pos % C, in place."""
     slot = pos % cache.capacity
-    cache.c[:, slot] = c_new[:, 0].to(cache.c.dtype)
-    cache.kr[:, slot] = kr_new[:, 0].to(cache.kr.dtype)
-    cache.pos[slot] = pos
+    put(cache.c, 1, slot, c_new[:, 0].to(cache.c.dtype))
+    put(cache.kr, 1, slot, kr_new[:, 0].to(cache.kr.dtype))
+    put(cache.pos, 0, slot, pos)
     return cache
 
 

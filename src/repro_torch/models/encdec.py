@@ -28,6 +28,7 @@ from torch import nn
 from repro_torch.config import ENCDEC, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding import context as shctx
 from repro_torch.models.layers import (MLP, Maker, mlp_apply, remat,
                                        rms_norm, torch_dtype)
 
@@ -203,7 +204,8 @@ def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
     Ld = cfg.num_decoder_layers or cfg.num_layers
     Kh, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (batch, cfg.encoder_frames, Kh, Dh)
+    spec = ("batch", None) + attn.kv_spec(Kh)[2:]
     return [DecCache(attn.init_kv_cache(batch, seq_len, Kh, Dh, dt, device),
-                     torch.zeros(shape, dtype=dt, device=device),
-                     torch.zeros(shape, dtype=dt, device=device))
+                     shctx.zeros(shape, dt, device, *spec),
+                     shctx.zeros(shape, dt, device, *spec))
             for _ in range(Ld)]

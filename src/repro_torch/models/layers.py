@@ -16,6 +16,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.context import batch_sharded
+
 
 def torch_dtype(name: str) -> torch.dtype:
     """``ModelConfig.dtype`` ("bfloat16", "float32") as a torch dtype."""
@@ -159,4 +161,4 @@ def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     g = x @ p.w_gate
     u = x @ p.w_up
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ p.w_down
+    return batch_sharded(h @ p.w_down)

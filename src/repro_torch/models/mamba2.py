@@ -20,10 +20,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.config import SSM, ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Maker, remat, rms_norm, torch_dtype
+from repro_torch.sharding import context as shctx
+from repro_torch.sharding.context import batch_sharded, constrain
 
 
 class SSMCache(NamedTuple):
@@ -90,6 +93,12 @@ def build_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Mamba2:
 # ---------------------------------------------------------------------------
 # Mixer
 # ---------------------------------------------------------------------------
+def _chunks(t, nc: int, Lc: int):
+    """[B, S, ...] -> [B, nc, Lc, ...] (a reshape: a DTensor under
+    ``inference_mode`` checks ``unflatten``'s sizes against its shard)."""
+    return t.reshape(t.shape[0], nc, Lc, *t.shape[2:])
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  buf: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,11 +138,19 @@ def _ssd_chunked(xh, dt, A, B_, C_, chunk: int):
     Lc = min(chunk, S)
     if S % Lc:
         raise AssertionError((S, Lc))
+    # under a mesh: batch and heads sharded, the sequence whole (the
+    # chunks split it); the scan then runs on each rank's shards
+    xh = constrain(xh, "batch", None, "model", None)
+    dt = constrain(dt, "batch", None, "model")
+    B_ = constrain(B_, "batch", None, None)
+    C_ = constrain(C_, "batch", None, None)
+    if isinstance(xh, DTensor):
+        return _ssd_on_shards(xh, dt, A, B_, C_, chunk)
     nc = S // Lc
-    xs = xh.float().unflatten(1, (nc, Lc)).permute(1, 0, 3, 2, 4)
-    dts = dt.float().unflatten(1, (nc, Lc)).permute(1, 0, 3, 2)
-    Bs = B_.float().unflatten(1, (nc, Lc)).transpose(0, 1)
-    Cs = C_.float().unflatten(1, (nc, Lc)).transpose(0, 1)
+    xs = _chunks(xh.float(), nc, Lc).permute(1, 0, 3, 2, 4)
+    dts = _chunks(dt.float(), nc, Lc).permute(1, 0, 3, 2)
+    Bs = _chunks(B_.float(), nc, Lc).transpose(0, 1)
+    Cs = _chunks(C_.float(), nc, Lc).transpose(0, 1)
     above = ~torch.ones((Lc, Lc), dtype=torch.bool, device=xh.device).tril()
     h = torch.zeros((Bb, H, Pd, N), dtype=torch.float32, device=xh.device)
     ys = []
@@ -169,13 +186,44 @@ def _ssd_chunked(xh, dt, A, B_, C_, chunk: int):
     return y, h
 
 
+def _ssd_on_shards(xh, dt, A, B_, C_, chunk: int):
+    """``_ssd_chunked`` under a mesh, on the local shards: the scan is
+    independent per (batch row, head), so each rank scans its batch rows
+    and heads with plain tensors (DTensor's dispatch of every op of the
+    chunk loop would cost more than the scan). B and C, replicated over
+    the heads' axis, get a partial-sum gradient over it, and A over the
+    batch axes."""
+    mesh = xh.device_mesh
+    heads = [isinstance(p, Shard) and p.dim == 2 for p in xh.placements]
+    batch = [isinstance(p, Shard) and p.dim == 0 for p in xh.placements]
+
+    def pl(on_heads, on_batch, other=Replicate()):
+        return [on_heads if h else on_batch if b else other
+                for h, b in zip(heads, batch)]
+    xl = xh.to_local()
+    dtl = dt.redistribute(mesh, pl(Shard(2), Shard(0))).to_local()
+    # A [H] is shared by the batch rows: its gradient is a partial sum
+    # over the batch shards
+    Al = A.redistribute(mesh, pl(Shard(0), Replicate())).to_local(
+        grad_placements=pl(Shard(0), Partial())) \
+        if isinstance(A, DTensor) else A
+    bc_in, bc_grad = pl(Replicate(), Shard(0)), pl(Partial(), Shard(0))
+    Bl = B_.redistribute(mesh, bc_in).to_local(grad_placements=bc_grad)
+    Cl = C_.redistribute(mesh, bc_in).to_local(grad_placements=bc_grad)
+    y, h = _ssd_chunked(xl, dtl, Al, Bl, Cl, chunk)
+    return (DTensor.from_local(y, mesh, pl(Shard(2), Shard(0)),
+                               run_check=False),
+            DTensor.from_local(h, mesh, pl(Shard(1), Shard(0)),
+                               run_check=False))
+
+
 def _gated_out(lp: Mamba2Layer, y, z, x_in, cfg: ModelConfig):
     """y, x_in: [B,S,H,P]; z: [B,S,W]."""
     y = y + x_in * lp.D_skip[..., None]                # skip connection
     y = y.flatten(2)
     y = y * F.silu(z.float()).to(y.dtype)
     y = rms_norm(y, lp.out_norm, cfg.norm_eps)
-    return y @ lp.w_out
+    return batch_sharded(y @ lp.w_out)
 
 
 def _mixer_inputs(lp: Mamba2Layer, x, cfg: ModelConfig,
@@ -283,10 +331,12 @@ def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
                       cfg.ssm_conv, cfg.ssm_d_inner)
     dt = torch_dtype(cfg.dtype)
 
-    def zeros(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=device)
-    return [SSMCache(state=zeros((batch, H, Pd, N), torch.float32),
-                     conv_x=zeros((batch, K - 1, W), dt),
-                     conv_B=zeros((batch, K - 1, N), dt),
-                     conv_C=zeros((batch, K - 1, N), dt))
+    def zeros(shape, dtype, *spec):
+        return shctx.zeros(shape, dtype, device, *spec)
+    return [SSMCache(state=zeros((batch, H, Pd, N), torch.float32, "batch",
+                                 "model", None, None),
+                     conv_x=zeros((batch, K - 1, W), dt, "batch", None,
+                                  "model"),
+                     conv_B=zeros((batch, K - 1, N), dt, "batch", None, None),
+                     conv_C=zeros((batch, K - 1, N), dt, "batch", None, None))
             for _ in range(cfg.num_layers)]

@@ -13,7 +13,21 @@ gate-weighted sum over k; and the Switch load-balance aux loss. The
 dispatch is jnp in the JAX package, so it runs on torch ops here. Every
 kept entry has its own buffer row and the dropped ones add zeros to the
 last row, so the buffer's bits do not depend on the order of the adds.
-The expert-parallel branch comes with the sharding slice.
+
+Under a mesh (a step's ``mesh_context``, its tensors ``DTensor``s) the
+JAX package's branches are kept, with its condition: with a model axis
+of size ep > 1 and at least ep experts, the expert-parallel block runs on
+each rank (the JAX package's ``shard_map``, here ``to_local`` /
+``from_local`` around the same per-rank block): every rank routes its
+batch shard's tokens (all of them where B does not divide the batch
+shards) to its E / ep experts from expert ``ei * E / ep`` on, with the
+FSDP all-gathers of w1 / w3 (dim 1) and w2 (dim 2) over ``data`` as
+redistributions, the shared expert on its ``Fs / ep`` column slice, the
+partial outputs summed over ``model``, and the aux averaged over the
+batch shards (each shard's own aux, so not the un-meshed aux). Otherwise
+the single-device block runs on every rank over all tokens and whole
+weights, as GSPMD computes it: the tokens and weights are replicated
+first.
 
 Layers are grouped by the chunk pattern (llama4: three chunked layers,
 then one full); under ``cfg.remat`` each group is checkpointed when
@@ -34,6 +48,7 @@ from repro_torch.config import MOE, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Maker, remat, rms_norm, torch_dtype
+from repro_torch.sharding import context as shctx
 
 
 # ---------------------------------------------------------------------------
@@ -123,38 +138,50 @@ def _route(x2, p: MoEFFN, cfg: ModelConfig):
     return probs, gates, idx
 
 
-def _dispatch(idx, C: int, E: int):
-    """The sort-based dispatch of the T * k entries (token-major): their
-    order sorted stably by expert, each entry's buffer row (expert * C +
-    its place in the expert's group, or the trash row E * C past
-    capacity) and whether it is kept, all in sorted order."""
-    flat_e = idx.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    n = torch.arange(flat_e.numel(), device=idx.device)
+def _dispatch(idx, C: int, e_local: int):
+    """The sort-based dispatch of the T * k entries (token-major) to the
+    local experts 0 .. e_local - 1 (``idx`` counted from this rank's first
+    expert): their order sorted stably by local expert (other ranks'
+    entries last), each entry's buffer row (local expert * C + its place
+    in the expert's group, or the trash row e_local * C past capacity or
+    for another rank's expert) and whether it is kept, all in sorted
+    order."""
+    local_e = idx.reshape(-1)
+    is_local = (local_e >= 0) & (local_e < e_local)
+    sort_key = torch.where(is_local, local_e, e_local)    # non-local -> end
+    order = torch.argsort(sort_key, stable=True)
+    sorted_e = sort_key[order]
+    n = torch.arange(sort_key.numel(), device=idx.device)
     pos_in_grp = n - torch.searchsorted(sorted_e, sorted_e, side="left")
-    keep = pos_in_grp < C
-    dest = torch.where(keep, sorted_e * C + pos_in_grp, E * C)
+    keep = (sorted_e < e_local) & (pos_in_grp < C)
+    dest = torch.where(keep, sorted_e * C + pos_in_grp, e_local * C)
     return order, dest, keep
 
 
-def _moe_ffn_block(x2, p: MoEFFN, cfg: ModelConfig
+def _moe_ffn_block(x2, p: MoEFFN, cfg: ModelConfig, e_start: int = 0,
+                   e_local: int = 0, w1=None, w3=None, w2=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Routed experts' contribution to tokens x2 [T, D]. Returns (y [T, D],
-    the aux loss as an fp32 scalar)."""
+    """Contribution of experts [e_start, e_start + e_local) (all of them
+    by default) to tokens x2 [T, D], with expert weights w1, w3, w2 (the
+    parameters by default). Returns (y [T, D], the aux loss as an fp32
+    scalar; the aux is over all experts, the same on every rank)."""
     T, D = x2.shape
     E, k = cfg.num_experts, cfg.top_k
+    e_local = e_local or E
+    w1 = p.w1 if w1 is None else w1
+    w3 = p.w3 if w3 is None else w3
+    w2 = p.w2 if w2 is None else w2
     probs, gates, idx = _route(x2, p, cfg)
     C = _capacity(T, cfg)
-    order, dest, keep = _dispatch(idx, C, E)
+    order, dest, keep = _dispatch(idx - e_start, C, e_local)
     flat_t = torch.div(order, k, rounding_mode="floor")    # token of each
     gathered = torch.where(keep[:, None], x2[flat_t], 0)
-    buf = x2.new_zeros((E * C + 1, D)).index_add(0, dest, gathered)
-    buf = buf[:E * C].reshape(E, C, D)
+    buf = x2.new_zeros((e_local * C + 1, D)).index_add(0, dest, gathered)
+    buf = buf[:e_local * C].reshape(e_local, C, D)
 
-    h = F.silu(torch.bmm(buf, p.w1).float()).to(x2.dtype)
-    h = h * torch.bmm(buf, p.w3)
-    out = torch.bmm(h, p.w2).reshape(E * C, D)
+    h = F.silu(torch.bmm(buf, w1).float()).to(x2.dtype)
+    h = h * torch.bmm(buf, w3)
+    out = torch.bmm(h, w2).reshape(e_local * C, D)
     out = torch.cat([out, out.new_zeros((1, D))], dim=0)
 
     contrib_sorted = out[dest] * keep[:, None].to(out.dtype)
@@ -171,22 +198,141 @@ def _moe_ffn_block(x2, p: MoEFFN, cfg: ModelConfig
     return y, aux
 
 
-def _shared_expert(x2, p: MoEFFN):
-    g = x2 @ p.sh_gate
-    u = x2 @ p.sh_up
+def _shared_expert(x2, sh_gate, sh_up, sh_down):
+    """The shared experts' MLP (on a column slice of their hidden dim
+    under expert parallelism)."""
+    g = x2 @ sh_gate
+    u = x2 @ sh_up
     h = F.silu(g.float()).to(x2.dtype) * u
-    return h @ p.sh_down
+    return h @ sh_down
 
 
 def moe_apply(p: MoEFFN, x, cfg: ModelConfig):
     """x: [B, S, D] -> (y [B, S, D], aux scalar): the JAX package's
-    ``moe_apply`` with no mesh."""
+    ``moe_apply``."""
     B, S, D = x.shape
-    x2 = x.reshape(B * S, D)
-    y, aux = _moe_ffn_block(x2, p, cfg)
+    mesh = shctx.get_mesh()
+    ep = shctx.model_axis_size()
+    if mesh is None or ep == 1 or cfg.num_experts < ep:
+        if mesh is not None and _sharded(x):
+            return _replicated_block(p, x, cfg, mesh)
+        x2 = x.reshape(B * S, D)
+        y, aux = _moe_ffn_block(x2, p, cfg)
+        if cfg.num_shared_experts:
+            y = y + _shared_expert(x2, p.sh_gate, p.sh_up, p.sh_down)
+        return y.reshape(B, S, D), aux
+    return _expert_parallel_block(p, x, cfg, mesh, ep)
+
+
+def _sharded(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _weights(p: MoEFFN, cfg: ModelConfig):
+    names = ["router", "w1", "w3", "w2"]
     if cfg.num_shared_experts:
-        y = y + _shared_expert(x2, p)
-    return y.reshape(B, S, D), aux
+        names += ["sh_gate", "sh_up", "sh_down"]
+    return {n: getattr(p, n) for n in names}
+
+
+def _replicated_block(p: MoEFFN, x, cfg: ModelConfig, mesh):
+    """The single-device block under a mesh: tokens and weights
+    replicated, the block run whole on every rank (so every gradient is
+    whole on every rank), the output replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    rep = [Replicate()] * mesh.ndim
+    B, S, D = x.shape
+    xl = x.redistribute(mesh, rep).to_local()
+    w = {n: t.redistribute(mesh, rep).to_local()
+         for n, t in _weights(p, cfg).items()}
+    x2 = xl.reshape(B * S, D)
+    y, aux = _moe_ffn_block(x2, _Local(w), cfg)
+    if cfg.num_shared_experts:
+        y = y + _shared_expert(x2, w["sh_gate"], w["sh_up"], w["sh_down"])
+    return (DTensor.from_local(y.reshape(B, S, D), mesh, rep,
+                               run_check=False),
+            DTensor.from_local(aux, mesh, rep, run_check=False))
+
+
+class _Local:
+    """Local shards of an ``MoEFFN``'s weights, read as its attributes."""
+
+    def __init__(self, w):
+        self.__dict__.update(w)
+
+
+def _expert_parallel_block(p: MoEFFN, x, cfg: ModelConfig, mesh, ep: int):
+    """The JAX package's ``shard_map`` block, per rank. Placements in
+    (and, for the backward, of the local gradients): tokens [B, S, D]
+    batch-sharded (replicated where B does not divide the batch shards)
+    and replicated over ``model``, their gradient a partial sum over
+    ``model``; the router replicated; w1, w3 [E, D, F] and w2 [E, F, D]
+    expert-sharded over ``model`` and gathered over ``data``; the shared
+    expert's columns (rows of sh_down) over ``model``. A weight's local
+    gradient is a partial sum over the batch axes that shard the tokens.
+    Out: y, a partial sum over ``model``, summed; and the aux, a partial
+    sum over ``model`` and the batch axes of aux / (ep * shards), so that
+    its sum is the mean over the batch shards and its gradient reaches
+    the router once."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    names = shctx.axis_names(mesh)
+    baxes = shctx.batch_axes()
+    B, S, D = x.shape
+    nb = 1
+    for a in (baxes or ()):
+        nb *= shctx.axis_size(mesh, a)
+    if baxes and B % nb != 0:
+        baxes = None          # tiny/unshardable batch: replicate tokens
+    bdims = [names.index(a) for a in (baxes or ())]
+    mdim = names.index("model")
+    nshards = nb if baxes else 1
+    E_loc = cfg.num_experts // ep
+
+    def pl(model=None, batch=None):
+        """Placements: ``model`` on the model dim, ``batch`` on the batch
+        dims, Replicate elsewhere."""
+        out = [Replicate()] * mesh.ndim
+        if model is not None:
+            out[mdim] = model
+        for d in bdims:
+            if batch is not None:
+                out[d] = batch
+        return out
+
+    part = Partial() if baxes else None       # grads over the batch dims
+    x_in = pl(batch=Shard(0) if baxes else None)
+    x_grad = pl(model=Partial(), batch=Shard(0) if baxes else None)
+    xl = x.redistribute(mesh, x_in).to_local(grad_placements=x_grad)
+    w = {"router": (pl(), pl(model=Partial(), batch=part)),
+         "w1": (pl(model=Shard(0)), pl(model=Shard(0), batch=part)),
+         "w3": (pl(model=Shard(0)), pl(model=Shard(0), batch=part)),
+         "w2": (pl(model=Shard(0)), pl(model=Shard(0), batch=part))}
+    if cfg.num_shared_experts:
+        w["sh_gate"] = (pl(model=Shard(1)), pl(model=Shard(1), batch=part))
+        w["sh_up"] = (pl(model=Shard(1)), pl(model=Shard(1), batch=part))
+        w["sh_down"] = (pl(model=Shard(0)), pl(model=Shard(0), batch=part))
+    tensors = _weights(p, cfg)
+    loc = {n: tensors[n].redistribute(mesh, into).to_local(
+        grad_placements=grad) for n, (into, grad) in w.items()}
+    ei = mesh.get_local_rank("model")
+
+    T_loc = xl.shape[0] * xl.shape[1]
+    x2 = xl.reshape(T_loc, D)
+    y, aux = _moe_ffn_block(x2, _Local(loc), cfg, ei * E_loc, E_loc,
+                            loc["w1"], loc["w3"], loc["w2"])
+    if cfg.num_shared_experts:
+        y = y + _shared_expert(x2, loc["sh_gate"], loc["sh_up"],
+                               loc["sh_down"])
+    y = DTensor.from_local(y.reshape(xl.shape), mesh,
+                           pl(model=Partial(),
+                              batch=Shard(0) if baxes else None),
+                           run_check=False)
+    y = y.redistribute(mesh, pl(batch=Shard(0) if baxes else None))
+    aux = DTensor.from_local(aux / (ep * nshards), mesh,
+                             pl(model=Partial(), batch=part),
+                             run_check=False)
+    return y, aux.redistribute(mesh, pl())
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ parameter is drawn from the name the JAX package gives it (``b<i>_ln``,
 """
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Optional
 
 import torch
@@ -28,8 +29,13 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (MLP, Maker, mlp_apply, remat,
                                        rms_norm, torch_dtype)
 from repro_torch.models.mamba2 import _causal_conv
+from repro_torch.sharding import context as shctx
+from repro_torch.sharding.context import batch_sharded, constrain
 
 C_SCALE = 8.0  # RG-LRU "c" constant
+# gather the gates' input over the model axis once (the JAX package's
+# REPRO_GATE_GATHER; off by default there too)
+GATE_GATHER = os.environ.get("REPRO_GATE_GATHER", "0") == "1"
 
 
 class RecCache(NamedTuple):
@@ -108,9 +114,14 @@ def build_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Hybrid:
 # RG-LRU recurrence
 # ---------------------------------------------------------------------------
 def _rglru_gates(lp: RecBlock, y, cfg: ModelConfig):
-    """y: [B,S,W] post-conv. Returns (a [B,S,W] fp32, gated input fp32)."""
-    r = torch.sigmoid((y @ lp.w_r).float())
-    i = torch.sigmoid((y @ lp.w_i).float())
+    """y: [B,S,W] post-conv. Returns (a [B,S,W] fp32, gated input fp32).
+    Under a mesh with ``REPRO_GATE_GATHER=1`` the gates' input is gathered
+    over W once, as in the JAX package."""
+    y_in = y
+    if GATE_GATHER:
+        y_in = constrain(y, "batch", None, None)   # gather W once (bf16)
+    r = torch.sigmoid((y_in @ lp.w_r).float())
+    i = torch.sigmoid((y_in @ lp.w_i).float())
     log_a = -C_SCALE * r * F.softplus(lp.lam.float())
     a = torch.exp(log_a)
     gated = (torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -120,7 +131,12 @@ def _rglru_gates(lp: RecBlock, y, cfg: ModelConfig):
 
 def rglru_scan_full(a, b, h0: Optional[torch.Tensor] = None):
     """h_t = a_t * h_{t-1} + b_t over axis 1. a/b: [B,S,W] fp32; h0 [B,W]
-    is folded in by the kernel."""
+    is folded in by the kernel. Under a mesh the three are pinned
+    batch- and width-sharded, so the kernel runs on the local shard."""
+    a = constrain(a, "batch", None, "model")
+    b = constrain(b, "batch", None, "model")
+    if h0 is not None:
+        h0 = constrain(h0, "batch", "model")
     return ops.rglru_scan(a, b, h0)
 
 
@@ -137,7 +153,7 @@ def _rec_apply(lp: RecBlock, x, cfg: ModelConfig,
     y, buf = _causal_conv(y, lp.conv, None if cache is None else cache.conv)
     a, b = _rglru_gates(lp, y, cfg)
     hs = rglru_scan_full(a, b, None if cache is None else cache.h)
-    out = (hs.to(x.dtype) * gate) @ lp.w_out
+    out = batch_sharded((hs.to(x.dtype) * gate) @ lp.w_out)
     x = x + out
     if return_cache:
         # copies, so the cache does not hold the [B, S, W] buffers
@@ -150,7 +166,7 @@ def _rec_decode(lp: RecBlock, x, cache: RecCache, cfg: ModelConfig):
     y, buf = _causal_conv(y, lp.conv, cache.conv)
     a, b = _rglru_gates(lp, y, cfg)
     h_new = a[:, 0] * cache.h + b[:, 0]                    # [B, W]
-    out = (h_new[:, None].to(x.dtype) * gate) @ lp.w_out
+    out = batch_sharded((h_new[:, None].to(x.dtype) * gate) @ lp.w_out)
     return x + out, RecCache(h_new, buf)
 
 
@@ -234,8 +250,10 @@ def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
     for kind in block_kinds(cfg):
         if kind == "rec":
             caches.append(RecCache(
-                torch.zeros((batch, W), dtype=torch.float32, device=device),
-                torch.zeros((batch, K - 1, W), dtype=dt, device=device)))
+                shctx.zeros((batch, W), torch.float32, device, "batch",
+                            "model"),
+                shctx.zeros((batch, K - 1, W), dt, device, "batch", None,
+                            "model")))
         else:
             caches.append(attn.init_kv_cache(batch, capacity,
                                              cfg.num_kv_heads,

@@ -21,6 +21,8 @@ from repro_torch.config import DENSE, VLM, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, Maker, apply_rope, mlp_apply,
                                        remat, rms_norm, torch_dtype)
+from repro_torch.sharding.context import (batch_sharded, constrain,
+                                          model_axis_size)
 
 
 # ---------------------------------------------------------------------------
@@ -70,8 +72,37 @@ def attn_build(make: Maker, cfg: ModelConfig, prefix: str = ""):
 
 
 def _project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk", h, w) as one matrix product."""
-    return (h @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    """einsum("bsd,dhk->bshk", h, w) as one matrix product. (A reshape,
+    not ``unflatten``: a DTensor under ``inference_mode`` checks
+    ``unflatten``'s sizes against its local shard.)"""
+    wf = w.reshape(w.shape[0], -1)
+    if w.shape[1] % model_axis_size() == 0:
+        out = h @ wf
+        # under a mesh: the heads on the model axis (the flat columns
+        # split between heads)
+        out = constrain(out, "batch", *(None,) * (out.ndim - 2), "model")
+    else:
+        out = _replicated_product(h, wf)
+    return out.reshape(*out.shape[:-1], *w.shape[1:])
+
+
+def _replicated_product(h, wf):
+    """h @ wf replicated over the model axis, for heads that do not
+    divide it (a kv projection at Kh < the axis, llama4's 40 heads on 16):
+    the weight gathered whole, the product run on each rank's batch rows.
+    DTensor's own product would split the flat head columns (or, in the
+    output projection's backward, the flat head rows) over the model
+    axis, which the reshape to heads cannot take. The weight's local
+    gradient is a partial sum over the batch shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = h.device_mesh
+    hp = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in h.placements]
+    wg = [Partial() if isinstance(p, Shard) else Replicate() for p in hp]
+    hl = h.redistribute(mesh, hp).to_local()
+    wl = wf.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=wg)
+    return DTensor.from_local(hl @ wl, mesh, hp, run_check=False)
 
 
 def _qkv(p: Attention, h, positions, cfg: ModelConfig):
@@ -89,7 +120,10 @@ def _qkv(p: Attention, h, positions, cfg: ModelConfig):
 def _out_proj(p: Attention, out):
     """einsum("bshk,hkd->bsd", out, wo)."""
     B, S = out.shape[:2]
-    return out.reshape(B, S, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+    flat, wo = out.reshape(B, S, -1), p.wo.reshape(-1, p.wo.shape[-1])
+    if p.wo.shape[0] % model_axis_size() == 0:
+        return batch_sharded(flat @ wo)
+    return batch_sharded(_replicated_product(flat, wo))
 
 
 def attn_apply_full(p: Attention, h, positions, cfg: ModelConfig, *,
@@ -281,7 +315,7 @@ def embed_tokens(model: Transformer, tokens, cfg: ModelConfig,
     x = model.embed[tokens]
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-    return x
+    return batch_sharded(x)
 
 
 def unembed(model: Transformer, x, cfg: ModelConfig):

@@ -143,3 +143,26 @@ def test_a_failed_write_ahead_record_fails_the_kernel_s_future():
                             payload=lambda: 0)
         with pytest.raises(OSError, match="disk full"):
             eng.submit(req).result(timeout=10)
+
+
+def test_quickstart_example_is_the_reference_s():
+    """``examples/torch_quickstart.py`` is the JAX package's pure-core
+    ``examples/quickstart.py`` with the prefix turned (and its own name in
+    the run line), and runs: the simulator prints every mode's row."""
+    import subprocess
+    import sys
+    ex = SRC.parent / "examples"
+    want = (ex / "quickstart.py").read_text().replace(
+        "repro.", "repro_torch.").replace("examples/quickstart.py",
+                                          "examples/torch_quickstart.py")
+    assert (ex / "torch_quickstart.py").read_text() == want
+    out = subprocess.run(
+        [sys.executable, str(ex / "torch_quickstart.py")], check=True,
+        capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}).stdout
+    ref = subprocess.run(
+        [sys.executable, str(ex / "quickstart.py")], check=True,
+        capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",
+             "JAX_PLATFORMS": "cpu"}).stdout
+    assert out == ref and "FIKIT" in out

@@ -295,7 +295,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         "repro_torch.launch.steps, repro_torch.optim.adamw, "
         "repro_torch.checkpoint.ckpt, repro_torch.data.pipeline, "
         "repro_torch.sim.workload, repro_torch.sim.fleet, "
-        "repro_torch.sim.analytics\n"
+        "repro_torch.sim.analytics, repro_torch.sharding.context, "
+        "repro_torch.sharding.specs, repro_torch.launch.mesh, "
+        "repro_torch.launch.cost, repro_torch.launch.dryrun, "
+        "repro_torch.kernels._sharded\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
         "or m == 'msgpack')\n"

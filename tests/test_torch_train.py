@@ -50,6 +50,8 @@ from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.config import InputShape, get_config  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTextPipeline  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
+from repro_torch.launch.mesh import (MULTI_POD, SINGLE_POD,  # noqa: E402
+                                     MeshShape)
 from repro_torch.models import api, layers, mamba2, vlm  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
@@ -476,7 +478,8 @@ def test_three_train_steps_match_jax(A):
                         torch.from_numpy(tb.labels)))
         jbatches.append((jnp.asarray(jb.tokens), jnp.asarray(jb.labels)))
     want = _jax_three_steps(jcfg, jparams, jbatches, A)
-    step_fn, _ = steps.make_train_step(cfg, InputShape("t", S, B, "train"),
+    step_fn, _ = steps.make_train_step(cfg, None,
+                                       InputShape("t", S, B, "train"),
                                        grad_accum=A)
     model.requires_grad_(True)
     opt = adamw.adamw_init(dict(model.named_parameters()))
@@ -583,7 +586,7 @@ def test_train_driver_end_to_end_with_a_bit_exact_reload(tmp_path, capsys):
 def test_train_step_example_args_are_meta():
     cfg = get_config("llava-next-mistral-7b").reduced()
     fn, (params, opt, batch, labels) = steps.make_train_step(
-        cfg, InputShape("t", 48, 4, "train"))
+        cfg, None, InputShape("t", 48, 4, "train"))
     assert all(p.device.type == "meta" for p in params.parameters())
     assert opt.mu["embed"].device.type == "meta"
     patches, tokens = batch
@@ -595,14 +598,14 @@ def test_train_step_example_args_are_meta():
 def test_prefill_and_serve_steps_match_the_api():
     _, _, cfg, model = _bridged("qwen3-4b")
     shape = InputShape("p", 24, 2, "prefill")
-    prefill, (pm, batch) = steps.make_prefill_step(cfg, shape)
+    prefill, (pm, batch) = steps.make_prefill_step(cfg, None, shape)
     assert tuple(batch.shape) == (2, 24) and batch.device.type == "meta"
     tokens, _ = _batch(cfg, 24)
     logits, caches = prefill(model, tokens)
     want, want_caches = api.prefill(model, tokens, cfg)
     assert torch.equal(logits, want) and not logits.requires_grad
     serve, (_, tok, pos, cache_sds) = steps.make_serve_step(
-        cfg, InputShape("d", 24, 2, "decode"))
+        cfg, None, InputShape("d", 24, 2, "decode"))
     assert tuple(tok.shape) == (2, 1) and pos == 23
     assert tuple(cache_sds[0].k.shape) == tuple(caches[0].k.shape)
     nxt = logits.argmax(-1).to(torch.int32)
@@ -620,22 +623,46 @@ def test_prefill_and_serve_steps_match_the_api():
 def test_default_grad_accum_matches_jax(name, B, S):
     mesh = type("Mesh", (), {"axis_names": ("data",), "shape": {"data": 1}})
     shape = InputShape("t", S, B, "train")
-    assert steps.default_grad_accum(get_config(name), shape) == \
+    assert steps.default_grad_accum(get_config(name), None, shape) == \
         jsteps.default_grad_accum(jconfig.get_config(name), mesh, shape)
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("name,B,S", [("qwen3-4b", 256, 4096),
+                                      ("recurrentgemma-9b", 32, 2048),
+                                      ("llama4-scout-17b-a16e", 256, 4096),
+                                      ("deepseek-v2-236b", 16, 4096)])
+def test_default_grad_accum_on_production_meshes_matches_jax(name, B, S,
+                                                             mesh):
+    """The batch is counted in shards over the mesh's batch axes."""
+    shape_axes = MULTI_POD if mesh == "2x16x16" else SINGLE_POD
+    jmesh = jax.sharding.AbstractMesh(*shape_axes)
+    shape = InputShape("t", S, B, "train")
+    assert steps.default_grad_accum(get_config(name),
+                                    MeshShape(*shape_axes), shape) == \
+        jsteps.default_grad_accum(jconfig.get_config(name), jmesh, shape)
 
 
 def test_env_flags(monkeypatch):
     cfg = get_config("qwen3-4b").reduced()
     shape = InputShape("t", 32, 4, "train")
     monkeypatch.setenv("REPRO_MOMENTS_BF16", "1")
-    _, (_, opt, _, _) = steps.make_step(cfg, shape)
+    _, (_, opt, _, _) = steps.make_step(cfg, None, shape)
     assert all(m.dtype == torch.bfloat16 for m in opt.mu.values())
     monkeypatch.delenv("REPRO_MOMENTS_BF16")
-    _, (_, opt, _, _) = steps.make_step(cfg, shape)
+    _, (_, opt, _, _) = steps.make_step(cfg, None, shape)
     assert all(m.dtype == torch.float32 for m in opt.mu.values())
+    # REPRO_ZERO_POD=1 shards the moments across pods on the multi-pod
+    # mesh (each moment's first unsharded divisible dim), as the JAX
+    # package's make_step does
+    pods = MeshShape(*MULTI_POD)
+    fn, _ = steps.make_step(cfg, pods, InputShape("t", 32, 64, "train"))
+    assert not any("pod" in s for s in fn.specs["opt"].mu.values())
     monkeypatch.setenv("REPRO_ZERO_POD", "1")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        steps.make_step(cfg, shape)
+    fn, _ = steps.make_step(cfg, pods, InputShape("t", 32, 64, "train"))
+    o, ps = fn.specs["opt"], fn.specs["params"]
+    assert all(s == o.nu[n] and ("pod" in s) == (None in ps[n])
+               for n, s in o.mu.items())
     monkeypatch.delenv("REPRO_ZERO_POD")
     # REPRO_GRAD_ACCUM=2: two microbatches, the loss their mean (taken
     # before the step's update, on a second copy of the weights)
@@ -649,7 +676,7 @@ def test_env_flags(monkeypatch):
             api.forward(before, tokens[i:i + 2], cfg)[0], labels[i:i + 2],
             0.0)) for i in (0, 2)]
     monkeypatch.setenv("REPRO_GRAD_ACCUM", "2")
-    step_fn, _ = steps.make_step(cfg, shape)
+    step_fn, _ = steps.make_step(cfg, None, shape)
     model.requires_grad_(True)
     _, _, m = step_fn(model, adamw.adamw_init(dict(model.named_parameters())),
                       tokens, labels)
@@ -670,7 +697,7 @@ def test_moe_configs_raise():
         jcfg, jparams, [(jnp.asarray(tb.tokens), jnp.asarray(tb.labels))],
         1)
     step_fn, (params_sds, _, _, _) = steps.make_train_step(
-        cfg, InputShape("t", S, B, "train"))
+        cfg, None, InputShape("t", S, B, "train"))
     assert params_sds.layers[0].moe.w1.device.type == "meta"
     model.requires_grad_(True)
     opt = adamw.adamw_init(dict(model.named_parameters()))

@@ -1,0 +1,11 @@
+"""SK of the high service's ``layer`` KernelID in the profile store after
+onboarding: the wall time of one layer segment, host launch and
+synchronisation included, as the scheduler predicts it."""
+
+
+def read(run):
+    prof = run.profiles.get("high")
+    if prof is None:
+        return None
+    sk = [v for kid, v in prof.SK.items() if kid.name.endswith("/layer")]
+    return 1e3 * sum(sk) / len(sk) if sk else None

@@ -197,9 +197,14 @@ class WallClockEngine:
         self.stop()
 
     def _device_loop(self, device: int) -> None:
+        # imported here, not at the top: the rest of this module is a
+        # verbatim copy of the JAX package's
+        from repro_torch import spans
         dq = self._device_qs[device]
         while True:
+            asked = time.perf_counter()
             item = dq.get()
+            got = time.perf_counter()
             if item is None or self._stop:
                 break
             req, fut, filler = item
@@ -210,6 +215,9 @@ class WallClockEngine:
             except BaseException as e:  # pragma: no cover
                 err = e
             t1 = time.perf_counter()
+            issued = spans.take_issued(t1)
+            # the request stays in the record; its input need not
+            req.payload = None
             if self._on_kernel_complete is not None:
                 # write-ahead: the durable record commits BEFORE the
                 # Future resolves (a client blocked on it may retire its
@@ -233,12 +241,17 @@ class WallClockEngine:
                 self.placement.kernel_end(req.task_instance, req.kernel_id,
                                           start=t0, end=t1)
                 cb = self._done_cbs.pop(req.uid, None)
+            booked = time.perf_counter()
             if cb is not None:
                 # completion callback AFTER the boundary's scheduling
                 # side-effects, OUTSIDE the lock: the callee may submit
                 # the stream's next request or retire the task without
                 # parking a thread on the Future (admission-plane seam)
                 cb(req, out, t0, t1, err)
+            spans.record((device, req.task_instance, req.seq_index,
+                          req.priority, filler, req.kernel_id.name,
+                          req.submit_time, asked, got, t0, issued, t1,
+                          booked, time.perf_counter()))
 
     # ----------------------------------------------------------- task control
     def task_begin(self, instance: int, key: TaskKey, priority: int) -> None:

@@ -31,6 +31,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from repro_torch import spans
 from repro_torch.config import ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.core.client import Segment
 from repro_torch.models import api, encdec, mamba2, moe, rglru, vlm
@@ -39,7 +40,10 @@ from repro_torch.models import transformer as tfm
 
 def _sync(state):
     """Wait for the card to finish ``state`` (a tensor, or a tuple of
-    tensors on one device)."""
+    tensors on one device). Called with the segment's body as its
+    argument, so it starts when the last kernel has been issued: that
+    moment is stamped for the engine's span recorder."""
+    spans.mark_issued()
     t = state[0] if isinstance(state, tuple) else state
     if t.is_cuda:
         torch.cuda.synchronize(t.device)

@@ -145,10 +145,15 @@ Phases, each of which exits non-zero on failure:
    show exactly every attention layer of the run's invocations, and its
    launches with Sq != Sk exactly their cross-attention layers (flash
    counts its launches per shape, so each entry of the ``kernels`` line
-   gives the launches at its own shape);
+   gives the launches at its own shape); a segment replayed from its CUDA
+   graph runs no wrapper, so its launches are the ones its graph's
+   capture counted, booked once a replay (``kernels._launches``): the
+   counts are those of the eager path;
 8. profile: the measurement phase's SK/SG per segment of each service at
    full size, beside one layer's (or block's) device time (seamless: its
-   whole encode segment and one decoder layer);
+   whole encode segment and one decoder layer); then every segment of
+   both services replayed from its CUDA graph against its body run
+   eagerly on the same input, chained, bit for bit (``replay_check``);
 9. load: ``serve_load`` of pair A at full size, open-loop Poisson gold
    (qwen3-4b B1 S32, Q0, a 0.5 s deadline) and diurnal bronze (mamba2-2.7b
    B2 S32, Q5) through the admission plane, at 0.5x and 2x the capacity
@@ -1903,12 +1908,36 @@ def serve_run(torch, K, high, low, mode):
     return rec
 
 
+def replay_check(torch, svc, batch) -> dict:
+    """Each segment of ``svc`` (a ``SegmentedService`` whose graphs were
+    captured) replayed from its graph against its body run eagerly on the
+    same input, chained through the replays: bit for bit, else an error
+    naming the segment and its largest difference."""
+    def leaves(x):
+        return x if isinstance(x, tuple) else (x,)
+    state, kinds = batch, collections.Counter()
+    for seg in svc.segments:
+        want, got = seg.fn.eager(state), seg.fn(state)
+        if not all(torch.equal(a, b) for a, b in zip(leaves(want),
+                                                     leaves(got))):
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(leaves(want), leaves(got)))
+            raise AssertionError(f"{seg.name}: the replay differs from the "
+                                 f"eager segment by up to {diff}")
+        kinds[seg.name.rsplit("/", 1)[-1]] += 1
+        state = got
+    return {"segments_bitwise": dict(kinds),
+            "graphs": sum(len(seg.fn.graphed.captured)
+                          for seg in svc.segments)}
+
+
 def segment_profile(torch, high, low):
     """Where a request's time goes: the measurement phase's per-run JCTs,
     SK (mean segment time incl. its device sync) and SG (host gap after
     it) per KernelID, beside the device time of one layer (or one block
     of each kind; for the encoder-decoder its whole encode segment and
-    one decoder layer) alone."""
+    one decoder layer) alone; then each segment's replay held to its
+    eager body (``replay_check``)."""
     from repro_torch.config import get_config
     from repro_torch.core.policy import Mode
     from repro_torch.models import encdec, rglru, segmentation
@@ -1952,7 +1981,8 @@ def segment_profile(torch, high, low):
             rec = {"measure_jct_ms": [1e3 * j for j in jcts],
                    "SK_ms": {k.name: 1e3 * v for k, v in prof.SK.items()},
                    "SG_ms": {k.name: 1e3 * v for k, v in prof.SG.items()},
-                   "block_device_ms": dev}
+                   "block_device_ms": dev,
+                   "replay": replay_check(torch, svc.svc, batch)}
             log(f"  {cfg.name}: " + json.dumps(rec))
     del hi, lo, state
     free(torch)

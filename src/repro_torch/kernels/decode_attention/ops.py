@@ -13,15 +13,11 @@ kernel's launches, so a run can show that its path went through it.
 """
 from __future__ import annotations
 
-import threading
-
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention_kernel,
 )
-from repro_torch.kernels import _sharded
+from repro_torch.kernels import _launches, _sharded
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-
-_count_lock = threading.Lock()
 
 
 def decode_attention(q, k, v, kpos, pos: int, *, window=None, chunk=None,
@@ -44,8 +40,7 @@ def decode_attention(q, k, v, kpos, pos: int, *, window=None, chunk=None,
                                     chunk=chunk, scale=scale)
     out = decode_attention_kernel(q, k, v, kpos, pos, window=window,
                                   chunk=chunk, scale=scale)
-    with _count_lock:
-        decode_attention.launches += 1
+    _launches.bump(decode_attention, "launches")
     return out
 
 

@@ -19,12 +19,12 @@ run can show that its path went through it, and
 D), so a run that launches several shapes can tell them apart;
 ``flash_attention.bwd_launches`` counts the backward's kernels (each
 backward call launches ``kernel.BWD_PASSES[dtype]`` of them: 2 in bf16,
-3 in fp32).
+3 in fp32). A CUDA graph's replay books the launches its capture counted
+(``kernels._launches``), so the counters read as if it ran eagerly.
 """
 from __future__ import annotations
 
 import collections
-import threading
 
 import torch
 
@@ -33,19 +33,17 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_kernel,
     flash_attention_kernel,
 )
-from repro_torch.kernels import _sharded
+from repro_torch.kernels import _launches, _sharded
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-
-_count_lock = threading.Lock()
 
 
 def _forward(q, k, v, causal, window, chunk, scale):
     out = flash_attention_kernel(q, k, v, causal=causal, window=window,
                                  chunk=chunk, scale=scale)
-    with _count_lock:
-        flash_attention.launches += 1
-        (B, H, Sq, D), (Kh, Sk) = q.shape, k.shape[1:3]
-        flash_attention.launches_by_shape[(B, H, Kh, Sq, Sk, D)] += 1
+    (B, H, Sq, D), (Kh, Sk) = q.shape, k.shape[1:3]
+    _launches.bump(flash_attention, "launches")
+    _launches.bump(flash_attention, "launches_by_shape",
+                   key=(B, H, Kh, Sq, Sk, D))
     return out
 
 
@@ -66,8 +64,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_kernel(q, k, v, dout, **ctx.mask)
-        with _count_lock:
-            flash_attention.bwd_launches += BWD_PASSES[q.dtype]
+        _launches.bump(flash_attention, "bwd_launches", BWD_PASSES[q.dtype])
         return dq, dk, dv, None, None, None, None
 
 

@@ -17,24 +17,19 @@ run can show that its path went through them.
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from repro_torch.kernels.rglru_scan.kernel import (
     rglru_scan_bwd_kernel,
     rglru_scan_kernel,
 )
-from repro_torch.kernels import _sharded
+from repro_torch.kernels import _launches, _sharded
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
-
-_count_lock = threading.Lock()
 
 
 def _forward(a, b, h0):
     out = rglru_scan_kernel(a, b, h0)
-    with _count_lock:
-        rglru_scan.launches += 1
+    _launches.bump(rglru_scan, "launches")
     return out
 
 
@@ -52,8 +47,7 @@ class RGLRUScan(torch.autograd.Function):
     def backward(ctx, dh):
         a, h, h0 = ctx.saved_tensors
         da, db, dh0 = rglru_scan_bwd_kernel(a, h, dh, h0)
-        with _count_lock:
-            rglru_scan.bwd_launches += 1
+        _launches.bump(rglru_scan, "bwd_launches")
         return da, db, dh0
 
 

@@ -21,7 +21,10 @@ inter-kernel device idle gaps. Each segment body runs under
 ``torch.inference_mode()``, entered inside the segment because that mode
 is thread-local and segments run on the engine's device thread, and ends
 in ``torch.cuda.synchronize()`` on a CUDA device: without it the engine
-would time kernel launches, not kernels, and SK would mean nothing.
+would time kernel launches, not kernels, and SK would mean nothing. On a
+CUDA device the body is replayed from a CUDA graph per segment instance
+and input signature (``models.graphs``), one memory pool a service; on
+the CPU it runs eagerly.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.config import ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.core.client import Segment
 from repro_torch.models import api, encdec, mamba2, moe, rglru, vlm
 from repro_torch.models import transformer as tfm
+from repro_torch.models.graphs import Graphed, SegmentGraphs
 
 
 def _sync(state):
@@ -48,6 +52,33 @@ def _sync(state):
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     return state
+
+
+class _Call:
+    """A segment's callable: its body under inference mode, through the
+    service's graphs, then ``_sync``; ``pick`` takes the part of the state
+    the body reads. ``eager`` runs the body as it is, for comparisons with
+    the replay."""
+
+    def __init__(self, graphed: Graphed, pick: Optional[Callable] = None):
+        self.graphed = graphed
+        self.pick = pick
+
+    def __call__(self, state):
+        return self._run(self.graphed, state)
+
+    def eager(self, state):
+        return self._run(self.graphed.body, state)
+
+    def _run(self, fn, state):
+        if self.pick is not None:
+            state = self.pick(state)
+        with torch.inference_mode():
+            return _sync(fn(state))
+
+
+def _block(fn, lp, cfg: ModelConfig, x):
+    return fn(lp, x, cfg)
 
 
 def _dense_layer(lp: tfm.DecoderLayer, x, cfg: ModelConfig):
@@ -110,6 +141,7 @@ class SegmentedService:
         self.seq = seq
         self.host_gap = host_gap
         self.tail_gap = tail_gap
+        self.graphs = SegmentGraphs()
         if cfg.family == HYBRID:
             self._build_hybrid()
         elif cfg.family == ENCDEC:
@@ -117,77 +149,66 @@ class SegmentedService:
         else:
             self._build_decoder_lm()
 
+    def _call(self, body: Callable, pick: Optional[Callable] = None):
+        return _Call(Graphed(body, self.graphs), pick)
+
+    def _layer(self, name: str, fn, lp) -> Segment:
+        return Segment(f"{self.cfg.name}/{name}",
+                       self._call(partial(_block, fn, lp, self.cfg)),
+                       host_work=_sleep_work(self.host_gap))
+
     def _ends(self):
         """The embed and head segments, shared by the decoder-LM and hybrid
         layouts."""
         cfg, model = self.cfg, self.model
 
-        def embed(batch):
-            with torch.inference_mode():
-                if cfg.family != VLM:
-                    return _sync(tfm.embed_tokens(model, batch, cfg))
-                tokens = batch[1]
+        def embed(tokens):
+            patches = None
+            if cfg.family == VLM:
                 patches = vlm.stub_patches(cfg, tokens.shape[0],
                                            device=tokens.device)
-                return _sync(tfm.embed_tokens(model, tokens, cfg, patches))
+            return tfm.embed_tokens(model, tokens, cfg, patches)
 
-        return Segment(f"{cfg.name}/embed", embed), self._head(lambda x: x)
+        # the VLM's batch is (stub patches, tokens): the segment builds
+        # its patches itself
+        pick = (lambda batch: batch[1]) if cfg.family == VLM else None
+        return (Segment(f"{cfg.name}/embed", self._call(embed, pick)),
+                self._head())
 
-    def _head(self, activations: Callable) -> Segment:
-        """The head segment: the logits of ``activations(state)``."""
+    def _head(self, pick: Optional[Callable] = None) -> Segment:
+        """The head segment: the logits of ``pick(state)``."""
         cfg, model = self.cfg, self.model
-
-        def head(state):
-            with torch.inference_mode():
-                return _sync(tfm.unembed(model, activations(state), cfg))
-
-        return Segment(f"{cfg.name}/head", head,
+        return Segment(f"{cfg.name}/head",
+                       self._call(lambda x: tfm.unembed(model, x, cfg), pick),
                        host_work=self._sample_work())
 
     def _build_decoder_lm(self):
         cfg = self.cfg
         embed, head = self._ends()
-        segs = [embed]
-        for i, lp in enumerate(self.model.layers):
-            segs.append(Segment(
-                f"{cfg.name}/layer",
-                partial(self._run_block, layer_fn(cfg, i), lp, cfg),
-                host_work=_sleep_work(self.host_gap)))
-        self.segments = segs + [head]
+        self.segments = ([embed] + [self._layer("layer", layer_fn(cfg, i), lp)
+                                    for i, lp in enumerate(self.model.layers)]
+                         + [head])
 
     def _build_hybrid(self):
-        cfg = self.cfg
         embed, head = self._ends()
-        segs = [embed]
-        for lp, kind in zip(self.model.blocks, rglru.block_kinds(cfg)):
-            fn = (rglru.rec_block_apply if kind == "rec"
-                  else rglru.attn_block_apply)
-            segs.append(Segment(
-                f"{cfg.name}/{kind}", partial(self._run_block, fn, lp, cfg),
-                host_work=_sleep_work(self.host_gap)))
-        self.segments = segs + [head]
+        self.segments = [embed] + [
+            self._layer(kind, rglru.rec_block_apply if kind == "rec"
+                        else rglru.attn_block_apply, lp)
+            for lp, kind in zip(self.model.blocks,
+                                rglru.block_kinds(self.cfg))] + [head]
 
     def _build_encdec(self):
         cfg, model = self.cfg, self.model
 
         def encode(batch):
             frames, tokens = batch
-            with torch.inference_mode():
-                return _sync((encdec.encode(model, frames, cfg),
-                              tfm.embed_tokens(model, tokens, cfg)))
+            return (encdec.encode(model, frames, cfg),
+                    tfm.embed_tokens(model, tokens, cfg))
 
-        segs = [Segment(f"{cfg.name}/encode", encode)]
-        for lp in model.dec_layers:
-            segs.append(Segment(
-                f"{cfg.name}/dec_layer",
-                partial(self._run_block, _dec_layer, lp, cfg),
-                host_work=_sleep_work(self.host_gap)))
-        self.segments = segs + [self._head(lambda state: state[1])]
-
-    @staticmethod
-    def _run_block(fn, lp, cfg: ModelConfig, x):
-        with torch.inference_mode():
-            return _sync(fn(lp, x, cfg))
+        self.segments = ([Segment(f"{cfg.name}/encode", self._call(encode))]
+                         + [self._layer("dec_layer", _dec_layer, lp)
+                            for lp in model.dec_layers]
+                         + [self._head(lambda state: state[1])])
 
     def _sample_work(self):
         tail = self.tail_gap
@@ -206,7 +227,8 @@ class SegmentedService:
 
     def warmup(self):
         """Run every segment once outside any measurement (on a CUDA
-        device this builds the kernels and the library handles)."""
+        device this builds the kernels and the library handles and
+        captures each segment's graph)."""
         state = self.make_input()
         for seg in self.segments:
             state = seg.fn(state)

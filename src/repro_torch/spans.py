@@ -25,6 +25,11 @@ the order they are taken:
 
 ``submit`` may fall after ``asked``: the thread may wait on an empty
 queue before the request exists.
+
+Beside the ring, ``count_graph`` counts the segments' CUDA graphs
+(``models.graphs``) since the process started: ``captured`` graphs,
+segment calls ``replayed`` from one, and CUDA segment calls run ``eager``
+(the call that captures a graph). ``clear`` leaves these counts.
 """
 from __future__ import annotations
 
@@ -56,8 +61,12 @@ class Row(NamedTuple):
     done: float
 
 
+#: what ``count_graph`` counts
+GRAPH_EVENTS = ("captured", "replayed", "eager")
+
 _ring: collections.deque = collections.deque(maxlen=CAPACITY)
 _written = 0                    # rows appended since the last clear()
+_graph_events = dict.fromkeys(GRAPH_EVENTS, 0)
 _lock = threading.Lock()
 _issued = threading.local()
 
@@ -107,3 +116,15 @@ def take_issued(default: float) -> float:
     t = getattr(_issued, "t", None)
     _issued.t = None
     return default if t is None else t
+
+
+def count_graph(event: str) -> None:
+    """Count one of ``GRAPH_EVENTS``."""
+    with _lock:
+        _graph_events[event] += 1
+
+
+def graph_counts() -> dict:
+    """Each of ``GRAPH_EVENTS`` counted since the process started."""
+    with _lock:
+        return dict(_graph_events)

@@ -132,7 +132,15 @@ Phases, each of which exits non-zero on failure:
    attention layers (0 for mamba2; seamless: 12 encoder + 12 decoder
    self + 12 cross) + steps x cross-attention layers (seamless's 12),
    the time of ``api.prefill`` (host clock around a synchronised call,
-   median of 3) and the time per decode step;
+   median of 3) and the time per decode step; then the served MoE
+   block's grouped expert product (``moe_grouped_phase``): its two Triton
+   kernels against their plain version at Qwen3-30B-A3B's widths (bf16
+   within 1e-2 of the output's size, fp32 within 1e-4), timed beside
+   their bound, the plain loop, the padded path's bmm and torch's
+   ``_grouped_mm``, no spill; and Qwen3-30B-A3B (the benchmark's
+   configuration) cut to 4 layers at full width, served at B2 S2048:
+   every segment's replay bit for bit with its eager run, the kernels'
+   launches exactly two a layer a call;
 7. serving: ``serve_pair`` hosts qwen3-4b (Q0) with stablelm-1.6b, with
    recurrentgemma-9b (pair E of the paper's Fig 16), with mamba2-2.7b
    (pair A) and with granite-20b (pair B); stablelm-1.6b (Q0) with
@@ -410,6 +418,13 @@ MOE_CUTS = {f"{LLAMA4}-L8": (LLAMA4, 8), f"{LLAMA4}-L4": (LLAMA4, 4),
 LLAMA4_L8, LLAMA4_L4, DEEPSEEK_L6 = MOE_CUTS
 # pairs H and D of the paper's Fig 16: an MoE model as the high service
 MOE_PAIRS = ((LLAMA4_L8, HI), (DEEPSEEK_L6, SSM_LO))
+# the grouped expert product's cases (T, skewed routing, dtype) at
+# Qwen3-30B-A3B's widths, and its service cut to QWEN3_MOE_LAYERS layers
+MOE_GEMM_CASES = ((512, False, "bfloat16"), (512, False, "float32"),
+                  (4096, False, "bfloat16"), (4096, True, "bfloat16"))
+QWEN3_MOE_FILE = os.path.join(ROOT, "servebench", "configs",
+                              "qwen3-4b.qwen3-30b-a3b.json")
+QWEN3_MOE_LAYERS = 4
 # the generate phase's (model, batch, prompt, rescale_qk): llama4 past its
 # 8192 chunk (its chunked and full layers' rings both wrap), with wq and
 # wk at fan_in d_model as h2o's, seamless's and llava's (``rescale_qk``:
@@ -2050,6 +2065,131 @@ def counted_drops():
         yield rec
 
 
+def qwen3_moe_config(layers: int):
+    """Qwen3-30B-A3B's port fields as the benchmark's configuration runs
+    them (``servebench/configs``), cut to ``layers`` layers, widths kept."""
+    from repro_torch.config import ModelConfig
+    with open(QWEN3_MOE_FILE) as f:
+        port = json.load(f)["low"]["port"]
+    return ModelConfig(**port).replace(name=f"{port['name']}-L{layers}",
+                                       num_layers=layers)
+
+
+def moe_gemm_inputs(torch, T, skew, dtype, seed):
+    """Tokens, Qwen3-30B-A3B's expert weights and a dropless routing of T
+    tokens (even, or Zipf-like onto the low experts) packed as the MoE
+    block packs it: rows in expert order, token order within an
+    expert."""
+    E, k, D, Fe = 128, 8, 2048, 768
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def w(*shape, fan):
+        return (torch.randn(*shape, generator=g) / fan ** 0.5).to(
+            "cuda", dtype)
+    w1, w3, w2 = w(E, D, Fe, fan=D), w(E, D, Fe, fan=D), w(E, Fe, D, fan=Fe)
+    x = torch.randn(T, D, generator=g).to("cuda", dtype)
+    logits = torch.randn(T, E, generator=g)
+    if skew:
+        logits += 3.0 / (1.0 + torch.arange(E) / 4.0)
+    idx = torch.sort(logits, dim=-1, descending=True, stable=True)[1][:, :k]
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    sizes = torch.bincount(idx.reshape(-1), minlength=E)
+    offsets = torch.cat([sizes.new_zeros(1), sizes.cumsum(0)]).to(
+        "cuda", torch.int32)
+    return x, (order // k).cuda(), offsets, w1, w3, w2
+
+
+def moe_grouped_phase(torch) -> dict:
+    """(a) The grouped expert product's two Triton kernels against their
+    plain version (``ref.py``) at Qwen3-30B-A3B's widths (D 2048, F 768,
+    E 128, k 8; T 512 and 4096, even and skewed routing; bf16, and fp32
+    at T 512), timed beside their bound (every expert's weights and the
+    entries' rows once), the plain loop, the padded path's three bmm at
+    dropless capacity and torch's ``_grouped_mm`` (the library yardstick,
+    which the port never calls); each compiled kernel's registers, no
+    spill. (b) Qwen3-30B-A3B cut to QWEN3_MOE_LAYERS layers at full width,
+    served at the M.moe_fill cell's B2 S2048 as a ``SegmentedService``:
+    each segment's replay equals its eager run bit for bit
+    (``replay_check``), and the kernels' launches count exactly two a
+    layer a call, eager, capturing and replayed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_gemm import kernel, ops, ref
+    from repro_torch.models import api
+    from repro_torch.models.segmentation import SegmentedService
+    E, k, D, Fe = 128, 8, 2048, 768
+    cases = {}
+    for T, skew, name in MOE_GEMM_CASES:
+        dtype = getattr(torch, name)
+        x, src, off, w1, w3, w2 = moe_gemm_inputs(torch, T, skew, dtype,
+                                                  seed=T + skew)
+        out = ops.moe_grouped_ffn(x, src, off, w1, w3, w2)
+        want = ref.moe_grouped_ffn_ref(x, src, off, w1, w3, w2)
+        err = float((out.float() - want.float()).abs().max())
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        size = max(1.0, float(want.float().abs().max()))
+        if not err <= tol * size:
+            raise AssertionError(f"moe_grouped_ffn T{T} skew {skew} "
+                                 f"{dtype}: error {err} of {size}")
+        N, item = T * k, 2 if dtype == torch.bfloat16 else 4
+        ops_ = 2 * N * D * 2 * Fe + 2 * N * Fe * D
+        nbytes = item * (3 * E * D * Fe + 2 * N * D + 2 * N * Fe)
+        bound, by = least_ms(nbytes, ops_, dtype_name(dtype))
+        rec = {"max_abs_err": err, "bound_ms": bound, "bound_by": by,
+               "ms": device_ms(torch, lambda: ops.moe_grouped_ffn(
+                   x, src, off, w1, w3, w2), n=20),
+               "max_group": int((off[1:] - off[:-1]).max())}
+        t0 = time.perf_counter()
+        ref.moe_grouped_ffn_ref(x, src, off, w1, w3, w2)
+        torch.cuda.synchronize()
+        rec["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+        if dtype == torch.bfloat16:
+            # yardstick only: torch's grouped GEMM, gate|up as one weight
+            w13 = torch.cat([w1, w3], dim=2).contiguous()
+            ends = off[1:].contiguous()
+
+            def library():
+                gu = torch._grouped_mm(x[src], w13, offs=ends)
+                h = (F.silu(gu[:, :Fe].float()) * gu[:, Fe:].float()
+                     ).to(dtype)
+                return torch._grouped_mm(h, w2, offs=ends)
+            rec["library_ms"] = device_ms(torch, library, n=20)
+        if T == 4096 and not skew:
+            # the padded path's expert products at C = T: 16x the work
+            buf = torch.randn(E, T, D, device="cuda", dtype=dtype)
+
+            def padded():
+                h = F.silu(torch.bmm(buf, w1).float()).to(dtype)
+                return torch.bmm(h * torch.bmm(buf, w3), w2)
+            rec["padded_ms"] = device_ms(torch, padded, n=2, reps=3)
+            del buf
+        cases[(T, skew, dtype_name(dtype))] = rec
+        log(f"  moe_grouped_ffn T{T} {'skewed' if skew else 'even'} "
+            f"{dtype_name(dtype)}: " + json.dumps(rec))
+    compiled = {f"{n} {d} {t}": v for (n, d, t), v in kernel.compiled.items()}
+    log("  compiled: " + json.dumps(compiled))
+    if any(v["spills"] for v in compiled.values()):
+        raise AssertionError(f"a grouped-product kernel spills: {compiled}")
+
+    cfg = qwen3_moe_config(QWEN3_MOE_LAYERS)
+    model = api.build_params(cfg, seed=0, device="cuda")
+    svc = SegmentedService(cfg, model, batch=2, seq=2048)
+    batch = svc.make_input()
+    n0 = ops.moe_grouped_ffn.launches
+    state = batch
+    for seg in svc.segments:                # eager run, capture, replay
+        state = seg.fn(state)
+    rec = {"replay": replay_check(torch, svc, batch)}
+    rec["launches"] = ops.moe_grouped_ffn.launches - n0
+    want = ops.KERNELS_A_CALL * cfg.num_layers * 3
+    if rec["launches"] != want:
+        raise AssertionError(f"{cfg.name}: {rec['launches']} grouped-"
+                             f"product launches, {want} expected")
+    log(f"  {cfg.name} B2 S2048: " + json.dumps(rec))
+    del model, svc, state, batch
+    free(torch)
+    return {"cases": cases, "service": rec}
+
+
 def moe_layer_grads(torch, lp, x, cfg, window, chunk, wy):
     """Gradients of sum(y * wy) + aux of one MoE layer with respect to
     each parameter and to x."""
@@ -3019,6 +3159,9 @@ def main() -> int:
         gen[name] = generate_check(torch, K, name, None, batch, prompt,
                                    hold_logits=True, rescale=rescale)
         free(torch)
+    log("[moe_gemm] the grouped expert product at Qwen3-30B-A3B's widths "
+        "and its service's replays")
+    moe_gemm = moe_grouped_phase(torch)
 
     served = {}
     for high, low in PAIRS + MOE_PAIRS:
@@ -3169,6 +3312,18 @@ def main() -> int:
             f"at the train shape, G 5); launches: phase 4 (d), one "
             f"chunked and one full layer, {bwd_bf16} kernels a call"),
     ]
+    gemm = moe_gemm["cases"][(4096, False, "bfloat16")]
+    entries.append(dict(
+        {"name": "moe_grouped_ffn", "route": "triton",
+         "source": "src/repro_torch/kernels/moe_gemm/kernel.py",
+         "replaces": "none: the JAX package runs its experts as padded "
+                     "batched products (src/repro/models/moe.py)",
+         "launches": moe_gemm["service"]["launches"]},
+        **{k: gemm[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        shape="T4096 k8 D2048 F768 E128 bf16, even routing (a Qwen3-30B-"
+              "A3B layer at B2 S2048); launches: the 4-layer cut's eager "
+              "run, capture and replay_check"))
     unused = [e["shape"] for e in entries if e["launches"] < 1]
     if unused:
         raise AssertionError(f"no launch on the path at {unused}")

@@ -6,13 +6,27 @@ The MoE block is the JAX package's single-device branch (no mesh), op for
 op: router logits in fp32, softmax, the k largest gates (the lower
 expert first on a tie, as ``jax.lax.top_k``), renormalised; a sort-based,
 capacity-bounded dispatch (the stable argsort of the expert ids decides
-which entries past an expert's capacity C are dropped) into an
-[E * C + 1, D] buffer whose last row takes the dropped entries; the
-expert products as batched matrix products; the inverse permutation, the
-gate-weighted sum over k; and the Switch load-balance aux loss. The
-dispatch is jnp in the JAX package, so it runs on torch ops here. Every
-kept entry has its own buffer row and the dropped ones add zeros to the
-last row, so the buffer's bits do not depend on the order of the adds.
+which entries past an expert's capacity C are dropped); the experts'
+products; the inverse permutation, the gate-weighted sum over k; and the
+Switch load-balance aux loss. The dispatch is jnp in the JAX package, so
+it runs on torch ops here.
+
+The experts' products take one of two paths, picked by whether autograd
+records, never by a switch. Where it records (the train steps), they are
+the JAX package's: the kept entries scattered into an [E * C + 1, D]
+buffer whose last row takes the dropped ones (every kept entry has its
+own row and the dropped ones add zeros to the last, so the buffer's bits
+do not depend on the order of the adds), and batched products over every
+expert's C rows. Where it does not (every served forward), the kept
+entries, in the dispatch's expert order, go through a grouped product
+(``kernels.moe_gemm``: a kernel on the card, its plain loop on the CPU)
+over each expert's min(count, C) rows, the groups' offsets a scan on the
+device, so nothing syncs the host and a captured layer is right for any
+routing. At dropless capacity (C = T) the padded path computes E / k
+times the routed work; the grouped one only that work. The kept set, the
+gates and the sum over k are the same on both. The served path also adds
+the entries routed to each expert and those dropped to the module's
+device-side counters (``spans.count_moe``).
 
 Under a mesh (a step's ``mesh_context``, its tensors ``DTensor``s) the
 JAX package's branches are kept, with its condition: with a model axis
@@ -44,7 +58,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import spans
 from repro_torch.config import MOE, ModelConfig
+from repro_torch.kernels.moe_gemm.ops import moe_grouped_ffn
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Maker, remat, rms_norm, torch_dtype
@@ -63,6 +79,8 @@ class MoEFFN(nn.Module):
         super().__init__()
         D, E = cfg.d_model, cfg.num_experts
         Fe = cfg.resolved_moe_d_ff
+        #: (model, layer) under which ``spans`` counts this layer's routing
+        self.count_name = (cfg.name, prefix.rstrip("."))
         self.router = make(prefix + "router", (D, E), scale=0.1)
         self.w1 = make(prefix + "w1", (E, D, Fe))           # gate proj
         self.w3 = make(prefix + "w3", (E, D, Fe))           # up proj
@@ -174,6 +192,35 @@ def _moe_ffn_block(x2, p: MoEFFN, cfg: ModelConfig, e_start: int = 0,
     probs, gates, idx = _route(x2, p, cfg)
     C = _capacity(T, cfg)
     order, dest, keep = _dispatch(idx - e_start, C, e_local)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x2, w1, w3, w2)):
+        contrib = _padded_experts(x2, order, dest, keep, C, e_local, k,
+                                  w1, w3, w2)
+    else:
+        contrib = _grouped_experts(x2, p, idx - e_start, order, keep, C,
+                                   e_local, k, w1, w3, w2)
+    y = (contrib * gates.reshape(-1, 1).to(contrib.dtype)
+         ).reshape(T, k, D).sum(dim=1)
+
+    # Switch-style load-balance aux loss over all experts
+    me = probs.mean(dim=0)                                 # [E]
+    ce = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
+    aux = E * torch.sum(me * ce) * (1.0 / k)
+    return y, aux
+
+
+def _inverse(order):
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    return inv
+
+
+def _padded_experts(x2, order, dest, keep, C: int, e_local: int, k: int,
+                    w1, w3, w2):
+    """Every expert over its C buffer rows (the JAX package's products);
+    returns each entry's expert output, token-major [T * k, D], zero where
+    dropped."""
+    D = x2.shape[1]
     flat_t = torch.div(order, k, rounding_mode="floor")    # token of each
     gathered = torch.where(keep[:, None], x2[flat_t], 0)
     buf = x2.new_zeros((e_local * C + 1, D)).index_add(0, dest, gathered)
@@ -185,17 +232,37 @@ def _moe_ffn_block(x2, p: MoEFFN, cfg: ModelConfig, e_start: int = 0,
     out = torch.cat([out, out.new_zeros((1, D))], dim=0)
 
     contrib_sorted = out[dest] * keep[:, None].to(out.dtype)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.numel(), device=order.device)
-    contrib = contrib_sorted[inv]                          # [T * k, D]
-    y = (contrib * gates.reshape(-1, 1).to(contrib.dtype)
-         ).reshape(T, k, D).sum(dim=1)
+    return contrib_sorted[_inverse(order)]
 
-    # Switch-style load-balance aux loss over all experts
-    me = probs.mean(dim=0)                                 # [E]
-    ce = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
-    aux = E * torch.sum(me * ce) * (1.0 / k)
-    return y, aux
+
+def _grouped_experts(x2, p, local_idx, order, keep, C: int, e_local: int,
+                     k: int, w1, w3, w2):
+    """The kept entries through the grouped product: expert e's group is
+    the first min(count_e, C) of its entries in the dispatch's order,
+    packed from offsets[e] (a scan of the group sizes on the device).
+    Returns each entry's expert output, token-major [T * k, D], zero where
+    dropped."""
+    N = order.numel()
+    dev = order.device
+    flat_e = local_idx.reshape(-1)
+    sorted_e = torch.where((flat_e >= 0) & (flat_e < e_local), flat_e,
+                           e_local)[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(e_local + 1,
+                                                       device=dev))
+    counts = starts.diff()
+    sizes = counts.clamp(max=C)
+    offsets = torch.cat([sizes.new_zeros(1), sizes.cumsum(0)])
+    # each sorted entry's row in the packed groups (N past the kept ones)
+    pos = torch.arange(N, device=dev) - starts[sorted_e]
+    row = torch.where(keep, offsets[sorted_e] + pos, N)
+    src = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    src[row] = torch.div(order, k, rounding_mode="floor")
+    out = moe_grouped_ffn(x2, src[:N], offsets.to(torch.int32), w1, w3, w2)
+    if isinstance(p, MoEFFN) and dev.type != "meta":
+        spans.count_moe(p, p.count_name, counts, (counts - sizes).sum())
+    inv = _inverse(order)
+    return torch.where(keep[inv][:, None], out[row.clamp(max=N - 1)[inv]],
+                       0)
 
 
 def _shared_expert(x2, sh_gate, sh_up, sh_down):

@@ -30,6 +30,12 @@ Beside the ring, ``count_graph`` counts the segments' CUDA graphs
 (``models.graphs``) since the process started: ``captured`` graphs,
 segment calls ``replayed`` from one, and CUDA segment calls run ``eager``
 (the call that captures a graph). ``clear`` leaves these counts.
+
+``count_moe`` keeps, per MoE layer module of each service, device-side
+accumulators of the entries routed to each expert and of those dropped
+past capacity, updated by in-place adds on the layer's own stream (inside
+a captured layer's graph too), with no sync; ``moe_counts`` reads them
+back, once, after the window. ``clear`` leaves these too.
 """
 from __future__ import annotations
 
@@ -42,6 +48,14 @@ from typing import List, NamedTuple, Optional
 #: segments a second on an H100's host, some 25,000 in its 50 s window and
 #: lead-in, so the ring holds such a window five times over
 CAPACITY = 1 << 17
+
+
+class MoECount(NamedTuple):
+    """What one MoE layer module routed since its first served forward."""
+    model: str          # the model's config name
+    layer: str          # the module's parameter prefix, ``layers.<i>.moe``
+    routed: List[int]   # entries routed to each expert, before capacity
+    dropped: int        # entries dropped past an expert's capacity
 
 
 class Row(NamedTuple):
@@ -67,6 +81,7 @@ GRAPH_EVENTS = ("captured", "replayed", "eager")
 _ring: collections.deque = collections.deque(maxlen=CAPACITY)
 _written = 0                    # rows appended since the last clear()
 _graph_events = dict.fromkeys(GRAPH_EVENTS, 0)
+_moe: list = []                 # (model, layer, accumulator) per module
 _lock = threading.Lock()
 _issued = threading.local()
 
@@ -128,3 +143,35 @@ def graph_counts() -> dict:
     """Each of ``GRAPH_EVENTS`` counted since the process started."""
     with _lock:
         return dict(_graph_events)
+
+
+def count_moe(owner, name: tuple, counts, dropped) -> None:
+    """Add ``counts`` (a device tensor of entries routed to each expert)
+    and ``dropped`` (a device scalar) to the accumulator of ``owner``, the
+    layer's module, named ``name`` (model, layer): one int64 tensor of
+    len(counts) + 1 on their device, made on the module's first count
+    there (outside any capture, since a captured segment runs eagerly
+    first; a normal tensor, not an inference one, so that forwards under
+    ``inference_mode`` and outside it both add to it)."""
+    acc = getattr(owner, "_moe_counts", None)
+    if acc is None or acc.device != counts.device:
+        import torch            # not at import: the store-only verbs
+        with torch.inference_mode(False):   # updated in and outside it
+            acc = torch.zeros(counts.numel() + 1, dtype=torch.int64,
+                              device=counts.device)
+        owner._moe_counts = acc
+        with _lock:
+            _moe.append((*name, acc))
+    acc[:-1].add_(counts)
+    acc[-1:].add_(dropped.reshape(1))
+
+
+def moe_counts() -> List[MoECount]:
+    """Every MoE layer module's counts (a device sync)."""
+    with _lock:
+        held = list(_moe)
+    out = []
+    for model, layer, acc in held:
+        values = acc.tolist()
+        out.append(MoECount(model, layer, values[:-1], values[-1]))
+    return out

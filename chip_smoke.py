@@ -133,7 +133,7 @@ Phases, each of which exits non-zero on failure:
    self + 12 cross) + steps x cross-attention layers (seamless's 12),
    the time of ``api.prefill`` (host clock around a synchronised call,
    median of 3) and the time per decode step; then the served MoE
-   block's grouped expert product (``moe_grouped_phase``): its two Triton
+   block's grouped expert product (``moe_grouped_phase``): its two CUDA
    kernels against their plain version at Qwen3-30B-A3B's widths (bf16
    within 1e-2 of the output's size, fp32 within 1e-4), timed beside
    their bound, the plain loop, the padded path's bmm and torch's
@@ -369,6 +369,8 @@ RG_EDGE = [(4, 1, 4096), (2, 95, 4096), (2, 97, 4096), (2, 191, 4096),
 # error |kernel - plain| / (|plain| + rms of the plain gradient): fp32
 # 1e-4, bf16 2e-2 (flash; rglru_scan's error over max(1, max|plain|))
 BWD_SOURCES = ("flash_attention_bwd", "rglru_scan_bwd")
+# the grouped expert product of the served MoE block
+MOE_SOURCES = ("moe_grouped_gemm",)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # what a backward replaces: the JAX package differentiates its jnp paths
 # with XLA, and no Pallas kernel has a backward
@@ -2100,13 +2102,13 @@ def moe_gemm_inputs(torch, T, skew, dtype, seed):
 
 
 def moe_grouped_phase(torch) -> dict:
-    """(a) The grouped expert product's two Triton kernels against their
+    """(a) The grouped expert product's two CUDA kernels against their
     plain version (``ref.py``) at Qwen3-30B-A3B's widths (D 2048, F 768,
     E 128, k 8; T 512 and 4096, even and skewed routing; bf16, and fp32
     at T 512), timed beside their bound (every expert's weights and the
     entries' rows once), the plain loop, the padded path's three bmm at
     dropless capacity and torch's ``_grouped_mm`` (the library yardstick,
-    which the port never calls); each compiled kernel's registers, no
+    which the port never calls); each built instance's registers, no
     spill. (b) Qwen3-30B-A3B cut to QWEN3_MOE_LAYERS layers at full width,
     served at the M.moe_fill cell's B2 S2048 as a ``SegmentedService``:
     each segment's replay equals its eager run bit for bit
@@ -2132,7 +2134,8 @@ def moe_grouped_phase(torch) -> dict:
                                  f"{dtype}: error {err} of {size}")
         N, item = T * k, 2 if dtype == torch.bfloat16 else 4
         ops_ = 2 * N * D * 2 * Fe + 2 * N * Fe * D
-        nbytes = item * (3 * E * D * Fe + 2 * N * D + 2 * N * Fe)
+        # every expert's weights, x once, H written and read, O written
+        nbytes = item * (3 * E * D * Fe + T * D + 2 * N * Fe + N * D)
         bound, by = least_ms(nbytes, ops_, dtype_name(dtype))
         rec = {"max_abs_err": err, "bound_ms": bound, "bound_by": by,
                "ms": device_ms(torch, lambda: ops.moe_grouped_ffn(
@@ -2165,10 +2168,7 @@ def moe_grouped_phase(torch) -> dict:
         cases[(T, skew, dtype_name(dtype))] = rec
         log(f"  moe_grouped_ffn T{T} {'skewed' if skew else 'even'} "
             f"{dtype_name(dtype)}: " + json.dumps(rec))
-    compiled = {f"{n} {d} {t}": v for (n, d, t), v in kernel.compiled.items()}
-    log("  compiled: " + json.dumps(compiled))
-    if any(v["spills"] for v in compiled.values()):
-        raise AssertionError(f"a grouped-product kernel spills: {compiled}")
+    log("  instances: " + json.dumps(kernel.instances()))
 
     cfg = qwen3_moe_config(QWEN3_MOE_LAYERS)
     model = api.build_params(cfg, seed=0, device="cuda")
@@ -2823,7 +2823,8 @@ def ops_recover(torch, K, db):
 # mangled name, how to label an instance, the SASS opcode it must show
 # (None: no tensor cores), how many instances there are, and whether a
 # spill fails the build. flash and decode: their bf16 tensor-core
-# instances; rglru_scan and its backward: both of their own (fp32,
+# instances; the grouped expert product: its bf16 (wgmma) and fp32
+# kernels; rglru_scan and its backward: both of their own (fp32,
 # bf16); flash's backward: its bf16 instances (dQ at D 64, 96, 120, 128 x
 # 1 or 2 warpgroups and D 256 x 1; dK/dV at the 5 head dims), then its
 # fp32 ones (3 passes x 5 head dims, CUDA cores), whose spills are
@@ -2848,6 +2849,10 @@ INSTANCES = {
     "rglru_scan_bwd": (r"rglru_scan_bwd_splitI(f|13__nv_bfloat16)E",
                        lambda t: "fp32" if t.group(1) == "f" else "bf16",
                        None, 2, True),
+    "moe_grouped_gemm": (r"2tc\d+moe_grouped_(gate_up|down)",
+                         lambda t: t.group(1), "HGMMA", 2, True),
+    "moe_grouped_gemm fp32": (r"4simt\d+moe_grouped_(gate_up|down)",
+                              lambda t: t.group(1), None, 2, True),
 }
 
 
@@ -2953,8 +2958,9 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    libs = _build.build_all(KERNELS + BWD_SOURCES)
-    log(f"[build] {', '.join(k + '.cu' for k in KERNELS + BWD_SOURCES)} "
+    sources = KERNELS + BWD_SOURCES + MOE_SOURCES
+    libs = _build.build_all(sources)
+    log(f"[build] {', '.join(k + '.cu' for k in sources)} "
         f"built with nvcc for sm_90a in {time.perf_counter() - t0:.1f} s "
         f"(in parallel)")
     for name, (_, _, opcode, _, spill_fails) in INSTANCES.items():
@@ -3314,8 +3320,8 @@ def main() -> int:
     ]
     gemm = moe_gemm["cases"][(4096, False, "bfloat16")]
     entries.append(dict(
-        {"name": "moe_grouped_ffn", "route": "triton",
-         "source": "src/repro_torch/kernels/moe_gemm/kernel.py",
+        {"name": "moe_grouped_ffn", "route": "cuda",
+         "source": "src/repro_torch/csrc/moe_grouped_gemm.cu",
          "replaces": "none: the JAX package runs its experts as padded "
                      "batched products (src/repro/models/moe.py)",
          "launches": moe_gemm["service"]["launches"]},

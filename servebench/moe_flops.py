@@ -8,9 +8,10 @@ is the attention of a dense layer (``flops.dense_layer_flops`` without its
 MLP), the router's [T, D] x [D, E] product and the experts' products over
 the entries alone: 2 T k D 2F for gate and up, 2 T k F D for down. The
 grouped product's bytes: every expert's weights read once (at the cells'
-32,768 entries over 128 experts every expert is hit), the entries' rows
-in and out (gate and up read each entry's token row and write its hidden
-row; down reads the hidden row and writes the entry's output row).
+32,768 entries over 128 experts every expert is hit), and the rows in and
+out: gate and up read the T token rows once (an entry's row is gathered
+from them) and write each entry's hidden row; down reads the hidden row
+and writes the entry's output row.
 """
 from __future__ import annotations
 
@@ -35,9 +36,9 @@ def down_flops(cfg: dict, n: int) -> int:
     return 2 * n * expert_width(cfg) * cfg["d_model"]
 
 
-def gate_up_bytes(cfg: dict, n: int, itemsize: int = 2) -> int:
+def gate_up_bytes(cfg: dict, T: int, n: int, itemsize: int = 2) -> int:
     D, Fe, E = cfg["d_model"], expert_width(cfg), cfg["num_experts"]
-    return itemsize * (2 * E * D * Fe + n * D + n * Fe)
+    return itemsize * (2 * E * D * Fe + T * D + n * Fe)
 
 
 def down_bytes(cfg: dict, n: int, itemsize: int = 2) -> int:
@@ -53,7 +54,7 @@ def bound_s(flops: int, nbytes: int) -> float:
 
 def gate_up_bound_s(cfg: dict, B: int, S: int) -> float:
     n = entries(cfg, B, S)
-    return bound_s(gate_up_flops(cfg, n), gate_up_bytes(cfg, n))
+    return bound_s(gate_up_flops(cfg, n), gate_up_bytes(cfg, B * S, n))
 
 
 def down_bound_s(cfg: dict, B: int, S: int) -> float:

@@ -33,8 +33,9 @@ def test_moe_forward_by_hand(B, S):
 def test_grouped_product_bounds():
     n = moe_flops.entries(MOE, 2, 3)
     assert n == 12
-    assert moe_flops.gate_up_bytes(MOE, n) == 2 * (2 * 4 * 8 * 6 + 12 * 8
-                                                   + 12 * 6)
+    # x's 6 token rows read once, not once an entry
+    assert moe_flops.gate_up_bytes(MOE, 6, n) == 2 * (2 * 4 * 8 * 6 + 6 * 8
+                                                      + 12 * 6)
     assert moe_flops.down_bytes(MOE, n) == 2 * (4 * 6 * 8 + 12 * 6 + 12 * 8)
     # Qwen3-30B-A3B at the cell's B2 S2048: 309 GFLOP, 1.21 GB of weights
     q = dict(MOE, d_model=2048, moe_d_ff=768, num_experts=128, top_k=8)
@@ -43,7 +44,7 @@ def test_grouped_product_bounds():
     assert total == pytest.approx(309.2e9, rel=1e-3)
     assert moe_flops.gate_up_bound_s(q, 2, 2048) == max(
         moe_flops.gate_up_flops(q, N) / flops.PEAK_BF16_FLOPS,
-        moe_flops.gate_up_bytes(q, N) / flops.PEAK_HBM_BYTES)
+        moe_flops.gate_up_bytes(q, 4096, N) / flops.PEAK_HBM_BYTES)
 
 
 def _run(ops=(), spans_=(), profiles=None, done=(0, 0)):

@@ -39,12 +39,19 @@ def _nvcc() -> str:
     return path
 
 
+def built_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built to: named by the hash of the
+    source and the flags. ptxas's ``-v`` report lies beside it, with the
+    suffix ``.log``."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
 def _build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library built from the same
     source and flags (named by their hash) is already there."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    out = built_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

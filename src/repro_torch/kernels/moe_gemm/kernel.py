@@ -1,182 +1,102 @@
-"""The grouped expert product of a served MoE layer on Hopper, written in
-Triton. It replaces no Pallas kernel: the JAX package runs its experts as
-batched products over a padded [E, C, D] buffer
-(``repro.models.moe._moe_ffn_block``), which at dropless capacity (C = T)
-computes E / k times the routed work. Here each expert runs over its own
-rows only. Two kernels a call, over N rows grouped by expert (the rows of
-expert e are offsets[e] .. offsets[e + 1]):
+"""Binding of the Hopper grouped expert product
+(``repro_torch/csrc/moe_grouped_gemm.cu``). It replaces no Pallas kernel:
+the JAX package runs its experts as batched products over a padded [E, C,
+D] buffer (``repro.models.moe._moe_ffn_block``), which at dropless capacity
+(C = T) computes E / k times the routed work. Here each expert runs over
+its own rows only, in two kernels a call over N rows grouped by expert
+(the rows of expert e are offsets[e] .. offsets[e + 1]):
 
 - ``moe_grouped_gate_up``: H[r] = silu(x[src[r]] w1[e]) * (x[src[r]] w3[e]),
-  gathering the token rows itself (no [N, D] copy of the entries), both
-  products accumulated in fp32 and the epilogue applied before one
-  rounding to the input type;
+  gathering the token rows itself (no [N, D] copy of the entries);
 - ``moe_grouped_down``: O[r] = H[r] w2[e].
 
-What bounds it: at a served Qwen3-30B-A3B layer (T 4096, k 8, D 2048, F
-768, E 128) the two kernels do 309 GFLOP and read 1.21 GB of expert
-weights, 0.31 ms at the bf16 peak and 0.36 ms at HBM bandwidth: the
-product sits at the ridge. A program computes a tile of BM rows of one
-expert by BN columns; the column tiles of one row tile are launched next
-to each other, so they share the gathered rows in L2, and the row tiles of
-one expert one after another, so they share its weights.
+bf16 runs on the tensor cores (wgmma fed by TMA and cp.async rings), fp32
+on the CUDA cores. The grid is fixed for the worst case (ceil(N / BM) + E
+row tiles by the column tiles), so a CUDA graph captured once is right for
+any routing: each CTA finds its group from the offsets on the device and
+one past the last tile does no work. Nothing is read back to the host.
 
-The grid is fixed for the worst case, cdiv(N, BM) + E row tiles, so the
-launch depends on shapes alone and a CUDA graph captured once is right for
-any routing: each program finds its group from the offsets (a scan of the
-groups' tile counts in registers), and one past the last tile does no
-work. Nothing is read back to the host.
-
-Triton is imported, and the kernels compiled, on the first launch, never at
-import: the CPU tests import this module without Triton. The first launch
-of each (kernel, dtype, tiles) reads the compiled kernel's registers and
-spills into ``compiled`` and raises on a spill.
+The library is built and loaded on the first launch (``kernels._build``),
+never at import, so the CPU tests import this module without ``nvcc``.
+Loading it reads ptxas's report of every instance (``instances``) and
+raises where one spills.
 """
 from __future__ import annotations
 
+import ctypes
+import re
 import threading
-from typing import Dict, NamedTuple
+from typing import Dict
 
 import torch
 
+from repro_torch.kernels import _build, _layout
 
-class Tiles(NamedTuple):
-    """A kernel's tile: BM rows of entries by BN output columns, BK deep a
-    step; its warps and pipeline stages."""
-    BM: int
-    BN: int
-    BK: int
-    warps: int
-    stages: int
+#: the instances' input types
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: D and F must be multiples of this: a k step never straddles two experts
+K_STEP = 64
+#: the 16-byte copies (TMA, cp.async, float4) need aligned rows
+ALIGN = 16
 
-
-#: (gate and up, down) tiles by input type: bf16 feeds wgmma; fp32 takes
-#: exact products on the CUDA cores, whose operands live in registers,
-#: so its tiles are a quarter the size (at bf16's, gate and up spilled)
-TILES = {torch.bfloat16: (Tiles(128, 128, 64, 8, 3),
-                          Tiles(128, 128, 64, 8, 4)),
-         torch.float32: (Tiles(64, 64, 32, 4, 3), Tiles(64, 64, 32, 4, 3))}
-DTYPES = tuple(TILES)
-#: registers and spills of each compiled (kernel, dtype, tiles)
-compiled: Dict[tuple, dict] = {}
-
-tl = None          # triton.language, bound on the first launch
-_jit: Dict[str, object] = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # x, src, offsets, w1, w3, w2, h, o; dtype, N, D, F, E; stream
+    "moe_grouped_ffn": ([_P] * 8 + [_I] * 5 + [_P], ctypes.c_int),
+    "moe_grouped_ffn_error_string": ([_I], ctypes.c_char_p),
+}
 _lock = threading.Lock()
+#: registers and spill bytes of each kernel instance, from ptxas
+_instances: Dict[str, dict] = {}
 
 
-def row_tiles(n_rows: int, n_groups: int, bm: int) -> int:
-    """Row tiles the grid holds: enough for any split of ``n_rows`` rows
-    into ``n_groups`` groups, each padded to a multiple of ``bm``."""
-    return -(-n_rows // bm) + n_groups
+def parse_ptxas(log: str) -> Dict[str, dict]:
+    """{instance: {"registers", "spill_bytes"}} of the grouped product's
+    kernels in a ptxas ``-v`` report: ``tc`` (bf16) and ``simt`` (fp32)
+    instances of ``moe_grouped_gate_up`` and ``moe_grouped_down``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"(tc|simt)\d+(moe_grouped_(?:gate_up|down))",
+                          m.group(1))
+            name = f"{t.group(2)} {t.group(1)}" if t else None
+            if name:
+                out[name] = {"registers": None, "spill_bytes": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
-# The two kernels, compiled by ``triton.jit`` on the first launch. Their
-# first lines, which find the program's group, are the same in both.
-def moe_grouped_gate_up(x, src, off, w1, w3, h, D, F,
-                        E: "tl.constexpr", EP: "tl.constexpr",
-                        BM: "tl.constexpr", BN: "tl.constexpr",
-                        BK: "tl.constexpr", PREC: "tl.constexpr"):
-    pid = tl.program_id(0)
-    n_col = tl.cdiv(F, BN)
-    tile = pid // n_col
-    cols = (pid % n_col) * BN + tl.arange(0, BN)
-    g = tl.arange(0, EP)
-    lo = tl.load(off + g, mask=g < E, other=0)
-    hi = tl.load(off + 1 + g, mask=g < E, other=0)
-    tiles = (hi - lo + BM - 1) // BM
-    e = tl.sum((tl.cumsum(tiles, 0) <= tile).to(tl.int32), 0)
-    first = tl.sum(tl.where(g < e, tiles, 0), 0)
-    start = tl.sum(tl.where(g == e, lo, 0), 0)
-    end = tl.sum(tl.where(g == e, hi, 0), 0)
-    rows = start + (tile - first) * BM + tl.arange(0, BM)
-    live = rows < end
-
-    tok = tl.load(src + rows, mask=live, other=0).to(tl.int64)
-    ks = tl.arange(0, BK)
-    col_ok = cols < F
-    w_at = tl.minimum(e, E - 1).to(tl.int64) * D * F
-    a_ptr = x + tok[:, None] * D + ks[None, :]
-    b1_ptr = w1 + w_at + ks[:, None] * F + cols[None, :]
-    b3_ptr = w3 + w_at + ks[:, None] * F + cols[None, :]
-    acc_g = tl.zeros((BM, BN), dtype=tl.float32)
-    acc_u = tl.zeros((BM, BN), dtype=tl.float32)
-    for k in range(0, tl.where(e < E, D, 0), BK):
-        k_ok = (k + ks) < D
-        a = tl.load(a_ptr, mask=live[:, None] & k_ok[None, :], other=0.0)
-        b_ok = k_ok[:, None] & col_ok[None, :]
-        b1 = tl.load(b1_ptr, mask=b_ok, other=0.0)
-        b3 = tl.load(b3_ptr, mask=b_ok, other=0.0)
-        acc_g = tl.dot(a, b1, acc_g, input_precision=PREC)
-        acc_u = tl.dot(a, b3, acc_u, input_precision=PREC)
-        a_ptr += BK
-        b1_ptr += BK * F
-        b3_ptr += BK * F
-    out = acc_g * tl.sigmoid(acc_g) * acc_u
-    at = rows.to(tl.int64)[:, None] * F + cols[None, :]
-    tl.store(h + at, out.to(h.dtype.element_ty),
-             mask=live[:, None] & col_ok[None, :])
-
-
-def moe_grouped_down(h, off, w2, o, D, F,
-                     E: "tl.constexpr", EP: "tl.constexpr",
-                     BM: "tl.constexpr", BN: "tl.constexpr",
-                     BK: "tl.constexpr", PREC: "tl.constexpr"):
-    pid = tl.program_id(0)
-    n_col = tl.cdiv(D, BN)
-    tile = pid // n_col
-    cols = (pid % n_col) * BN + tl.arange(0, BN)
-    g = tl.arange(0, EP)
-    lo = tl.load(off + g, mask=g < E, other=0)
-    hi = tl.load(off + 1 + g, mask=g < E, other=0)
-    tiles = (hi - lo + BM - 1) // BM
-    e = tl.sum((tl.cumsum(tiles, 0) <= tile).to(tl.int32), 0)
-    first = tl.sum(tl.where(g < e, tiles, 0), 0)
-    start = tl.sum(tl.where(g == e, lo, 0), 0)
-    end = tl.sum(tl.where(g == e, hi, 0), 0)
-    rows = start + (tile - first) * BM + tl.arange(0, BM)
-    live = rows < end
-
-    rows64 = rows.to(tl.int64)
-    ks = tl.arange(0, BK)
-    col_ok = cols < D
-    w_at = tl.minimum(e, E - 1).to(tl.int64) * F * D
-    a_ptr = h + rows64[:, None] * F + ks[None, :]
-    b_ptr = w2 + w_at + ks[:, None] * D + cols[None, :]
-    acc = tl.zeros((BM, BN), dtype=tl.float32)
-    for k in range(0, tl.where(e < E, F, 0), BK):
-        k_ok = (k + ks) < F
-        a = tl.load(a_ptr, mask=live[:, None] & k_ok[None, :], other=0.0)
-        b = tl.load(b_ptr, mask=k_ok[:, None] & col_ok[None, :], other=0.0)
-        acc = tl.dot(a, b, acc, input_precision=PREC)
-        a_ptr += BK
-        b_ptr += BK * D
-    tl.store(o + rows64[:, None] * D + cols[None, :],
-             acc.to(o.dtype.element_ty),
-             mask=live[:, None] & col_ok[None, :])
-
-
-def _kernels() -> Dict[str, object]:
-    """The jitted kernels, made on the first call."""
-    global tl
+def library() -> ctypes.CDLL:
+    """The kernels' library, built by nvcc on the first call; raises if an
+    instance spills registers."""
+    lib = _build.load("moe_grouped_gemm", _SIGNATURES)
     with _lock:
-        if not _jit:
-            import triton
-            import triton.language as language
-            tl = language
-            for fn in (moe_grouped_gate_up, moe_grouped_down):
-                _jit[fn.__name__] = triton.jit(fn)
-        return _jit
+        if not _instances:
+            path = _build.built_path("moe_grouped_gemm")
+            found = parse_ptxas(path.with_suffix(".log").read_text())
+            spilled = {k: v for k, v in found.items() if v["spill_bytes"]}
+            if spilled:
+                raise RuntimeError(f"moe_grouped_gemm.cu spills registers: "
+                                   f"{spilled}")
+            _instances.update(found)
+    return lib
 
 
-def _checked(name: str, dtype, tiles: Tiles, kernel) -> None:
-    key = (name, str(dtype).rsplit(".", 1)[-1], tiles)
-    if key in compiled:
-        return
-    info = compiled[key] = {"regs": getattr(kernel, "n_regs", None),
-                            "spills": getattr(kernel, "n_spills", None)}
-    if info["spills"]:
-        raise RuntimeError(f"{name} ({key[1]}, {tiles}) spills "
-                           f"{info['spills']} registers: change its tiles")
+def instances() -> Dict[str, dict]:
+    """Registers and spill bytes of each built instance (empty before the
+    first launch)."""
+    with _lock:
+        return dict(_instances)
 
 
 def moe_grouped_ffn_kernel(x: torch.Tensor, src: torch.Tensor,
@@ -195,14 +115,20 @@ def moe_grouped_ffn_kernel(x: torch.Tensor, src: torch.Tensor,
                              f"x on {x.device}; all must be on one card")
         if not t.is_contiguous():
             raise ValueError(f"moe_grouped_ffn: {name} is not contiguous")
+        if t.dim() > 1 and _layout.misaligned(t, ALIGN):
+            raise ValueError(f"moe_grouped_ffn: {name} is not aligned to "
+                             f"{ALIGN} bytes")
     if x.dtype not in DTYPES or {w1.dtype, w3.dtype, w2.dtype} != {x.dtype}:
         raise ValueError(f"moe_grouped_ffn: x {x.dtype}, weights "
                          f"{w1.dtype}/{w3.dtype}/{w2.dtype}; one of "
-                         f"{DTYPES} for all")
+                         f"{tuple(DTYPES)} for all")
     if (D1, tuple(w3.shape), tuple(w2.shape)) != (D, (E, D, F), (E, F, D)):
         raise ValueError(f"moe_grouped_ffn: x {tuple(x.shape)}, w1 "
                          f"{tuple(w1.shape)}, w3 {tuple(w3.shape)}, w2 "
                          f"{tuple(w2.shape)}")
+    if D % K_STEP or F % K_STEP:
+        raise ValueError(f"moe_grouped_ffn: D {D} and F {F} must be "
+                         f"multiples of {K_STEP}")
     if src.dtype != torch.int64 or offsets.dtype != torch.int32 or (
             tuple(offsets.shape) != (E + 1,)):
         raise ValueError(f"moe_grouped_ffn: src {src.dtype}, offsets "
@@ -210,17 +136,15 @@ def moe_grouped_ffn_kernel(x: torch.Tensor, src: torch.Tensor,
                          f"int64 and int32 [{E + 1}]")
     h = x.new_empty((N, F))
     o = x.new_empty((N, D))
-    jit = _kernels()
-    consts = dict(E=E, EP=max(16, 1 << (E - 1).bit_length()),
-                  PREC="ieee" if x.dtype == torch.float32 else "tf32")
-    gate_up, down = TILES[x.dtype]
-    for name, args, width, t in (
-            ("moe_grouped_gate_up", (x, src, offsets, w1, w3, h, D, F), F,
-             gate_up),
-            ("moe_grouped_down", (h, offsets, w2, o, D, F), D, down)):
-        grid = (row_tiles(N, E, t.BM) * -(-width // t.BN),)
-        kernel = jit[name][grid](*args, BM=t.BM, BN=t.BN, BK=t.BK,
-                                 num_warps=t.warps, num_stages=t.stages,
-                                 **consts)
-        _checked(name, x.dtype, t, kernel)
+    lib = library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.moe_grouped_ffn(
+            x.data_ptr(), src.data_ptr(), offsets.data_ptr(), w1.data_ptr(),
+            w3.data_ptr(), w2.data_ptr(), h.data_ptr(), o.data_ptr(),
+            DTYPES[x.dtype], N, D, F, E, stream)
+    if err != 0:
+        msg = lib.moe_grouped_ffn_error_string(err).decode()
+        raise RuntimeError(f"moe_grouped_ffn launch failed: CUDA error "
+                           f"{err} ({msg})")
     return o

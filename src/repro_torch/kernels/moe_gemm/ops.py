@@ -1,10 +1,10 @@
 """Public wrapper of the grouped expert product.
 
-A CUDA tensor launches the two Triton kernels of ``kernel.py`` (or
-raises); a tensor on the CPU goes to the plain version,
-``ref.moe_grouped_ffn_ref``; one on the ``meta`` device (the dry-run) gets
-products of the same shapes and operations, as if every row were one
-expert's. There is no fallback from one to the other. The MoE block calls
+A CUDA tensor launches the two kernels of ``csrc/moe_grouped_gemm.cu``
+through ``kernel.py`` (or raises); a tensor on the CPU goes to the plain
+version, ``ref.moe_grouped_ffn_ref``; one on the ``meta`` device (the
+dry-run) gets products of the same shapes and operations, as if every row
+were one expert's. There is no fallback from one to the other. The MoE block calls
 it only where autograd does not record (``models.moe``), so it has no
 backward.
 
